@@ -1,20 +1,32 @@
 """Smoke run of the PyTorch / CUDA port (periodicity_tpu_torch) on one GPU.
 
-Drives the GLS main path, ``GLS()(TSeries(t, y))`` and ``gls_power`` at
-the benchmark shape (N = 1e5 samples over a 1000-day baseline, 1e6 trial
-frequencies), through the hand-written CUDA spreading kernel, and checks
-every phase:
+Drives the port's paths on the card, through the hand-written CUDA
+kernels, and checks every phase:
 
 1. a CUDA device is present; the card's name and power limit;
-2. the kernel library builds from ``periodicity_tpu_torch/csrc``;
-3. the kernel agrees with its plain PyTorch version at the main-path
-   shapes (2^23 and 2^22 cells), and on a clustered draw;
+2. the kernel library builds from ``periodicity_tpu_torch/csrc`` (one
+   nvcc per source, all started together);
+3. the spreading kernel agrees with its plain PyTorch version at the GLS
+   main-path shapes (2^23 and 2^22 cells), and on a clustered draw;
 4. ``GLS()(TSeries(t, y))`` on the card finds the injected 7.7-day period,
-   through exactly two kernel launches;
+   through exactly two spreading launches;
 5. float32 ``gls_power`` with the kernel agrees with float64 on the card
    at the benchmark shape; on a small input, float32 agrees with float64
    and the fast path with the exact direct method;
-6. times: kernel vs plain, chained periodograms, peak device memory.
+6. GLS times: kernel vs plain, chained periodograms, peak device memory;
+7. the phase-fold kernel agrees with its plain version at the BLS
+   benchmark shape (config 11: N = 2000, 1e5 trial periods, 2 rows of 256
+   bins), the AoV and conditional-entropy shapes and an edge draw (counts
+   bit-equal); the unfactored spreading kernel agrees with its plain
+   version at N = 1e5, 2^23 cells and on a clustered draw;
+8. ``BLS()(TSeries(t, y))`` at config 11 on the card goes through the fold
+   kernel (one launch per chunk of periods), finds the 7.7-day transit
+   period and agrees with the float64 scatter scan;
+9. ``AoV``, ``ConditionalEntropy`` and ``GregoryLoredo`` on the card find
+   their injected periods through the fold kernel;
+10. phase-slice times: fold and unfactored spreading kernels vs plain, the
+   chained config-11 BLS rate with the device-busy share from one profiler
+   window, and the peak device memory of one scan.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (one GPU).
 Any failure raises and the exit code is non-zero. The line before the
@@ -27,6 +39,7 @@ import math
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -70,6 +83,36 @@ def grid_draw(nfft, occupied, seed, cluster_tile=None):
     lag = np.prod(d, axis=1)[:, None] / (denom[None, :] * d)
     return (ilo, (w * np.cos(phase)).astype(np.float32), (w * np.sin(phase)).astype(np.float32),
             lag.astype(np.float32))
+
+
+# config 11 (benchmarks/run_benchmarks.py:613-659): BLS over 1e5 trial
+# periods x 4 durations, N = 2000, 256 bins, 512 periods per chunk
+BLS_N = 2000
+BLS_P = 100_000
+BLS_NBINS = 256
+BLS_WIDTHS = (3, 6, 13, 26)
+BLS_DURATIONS = tuple(w / BLS_NBINS for w in BLS_WIDTHS)
+BLS_BATCH = 512
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+
+
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    float32 operations over the peak rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bls_draw():
+    """Config 11's light curve: f32 times over 200 days, a 7.7-day box
+    transit of depth 0.02 over 5% of the phase, noise 0.005."""
+    rng = np.random.default_rng(0)
+    t = np.sort(rng.uniform(0, 200.0, BLS_N)).astype(np.float32)
+    phi = (t / PERIOD) % 1.0
+    y = (np.where(phi < 0.05, -0.02, 0.0) + 0.005 * rng.standard_normal(BLS_N)).astype(np.float32)
+    return t, y
 
 
 def event_ms(fn, reps):
@@ -261,20 +304,311 @@ def main():
     peak = torch.cuda.max_memory_allocated()
     print(f"peak device memory, one bench-shape periodogram: {peak / 2**20:.1f} MiB  ({card})")
 
-    record = {"kernels": [{
+    # the spreading kernel's bound at the timed shape (pair 2^23): ilo,
+    # u_re, u_im and lag read once, both planes written once
+    b1_bound = bound(N * (4 + 4 + 4 + 4 * TAPS) + 2 * (1 << 23) * 4, N * TAPS * 2 * 2)
+
+    kernels = [{
         "name": "extirpolate_grid_factored",
         "route": "cuda",
         "source": "periodicity_tpu_torch/csrc/extirpolate_grid.cu",
-        "replaces": "periodicity_tpu/ops/pallas_grid2.py:142",
+        "replaces": "periodicity_tpu/ops/pallas_grid2.py:194",
         "launches": launches,
         "max_abs_err": max_abs_err,
         "ms": times["pair 2^23"]["kernel"],
         "plain_ms": times["pair 2^23"]["plain"],
-    }]}
-    print(json.dumps(record))
+        "bound_ms": b1_bound[0],
+        "bound_by": b1_bound[1],
+        "library_ms": None,
+    }]
+    kernels += phase_slice(dev, card, cuda)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase_slice(dev, card, cuda):
+    """Phases 7-10: the fold kernel (B2) and the unfactored spreading
+    kernel (B3) against their plain versions, the phase estimators on the
+    card, and their times. Returns the two kernels' JSON records."""
+    import torch
+
+    from periodicity_tpu_torch import TSeries
+    from periodicity_tpu_torch.ops.fold import fold_onehot, fold_onehot_plain
+    from periodicity_tpu_torch.ops.grid import extirpolate_grid, extirpolate_grid_plain
+    from periodicity_tpu_torch.phase import (
+        BLS,
+        AoV,
+        ConditionalEntropy,
+        GregoryLoredo,
+        bls_scan,
+    )
+
+    # phase 7a: fold kernel vs plain. Counts (rows of ones) are integers
+    # below 2^24 and must be bit-equal; weighted rows are f32 sums in
+    # another order and must agree within 1e-6 of the row's max |value|.
+    # The rounding of such a sum grows with the square root of the samples
+    # in a bin: the AoV shape puts ~220 samples in each of its 9 bins (the
+    # BLS shape ~8 in each of 256) and is held at 1e-5.
+    t, y = bls_draw()
+    w = np.full(BLS_N, 1.0 / BLS_N, np.float32)
+    wyc = (w * (y - np.sum(w * y))).astype(np.float32)
+    rng = np.random.default_rng(11)
+    x = np.sin(2 * np.pi * t / PERIOD) + 0.2 * rng.standard_normal(BLS_N)
+    xb = np.clip(((x - x.min()) / np.ptp(x) * 5).astype(np.int32), 0, 4)
+    bls_periods = np.linspace(0.5, 100.0, BLS_P)
+    t_edge = np.sort(rng.uniform(0, 1400.0, 1999)) + 2.45e6  # BJD epoch, float64
+    fold_cases = {
+        # label: (t, values [nv, N], periods, n_phi, stride, offsets, count rows)
+        "config 11 (N=2000, P=1e5, 2x256)": (t, np.stack([w, wyc]), bls_periods, 256, 1,
+                                            None, []),
+        "AoV (3 rows x 9)": (t, np.stack([np.ones_like(x), x, x * x]).astype(np.float32),
+                             np.linspace(2.0, 20.0, 10_000), 9, 1, None, [0]),
+        "CE (10 x 5, offsets)": (t, np.ones((1, BLS_N), np.float32),
+                                 np.linspace(2.0, 12.0, 10_000), 10, 5, xb, [0]),
+        "edge (N=1999, P=9999, BJD f64)": (
+            t_edge, np.stack([np.ones(1999), rng.standard_normal(1999)]).astype(np.float32),
+            np.linspace(0.5, 100.0, 9999), 64, 1, None, [0]),
+    }
+    fold_args = {}
+    fold_err = 0.0
+    for label, (tt, vals, periods, n_phi, stride, off, counts) in fold_cases.items():
+        a = (cuda(tt), cuda(vals), 1.0 / cuda(periods), n_phi, stride,
+             None if off is None else cuda(off))
+        fold_args[label] = a
+        got = fold_onehot(*a)
+        ref = fold_onehot_plain(*a)
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape == (len(periods), vals.shape[0], n_phi * stride),
+              f"fold {label}: shape")
+        for r in counts:
+            check(torch.equal(got[:, r], ref[:, r]), f"fold {label}: count row {r} bit-equal")
+            check(bool((got[:, r].sum(-1) == len(tt)).all()), f"fold {label}: counts sum to N")
+        tol = 1e-5 if len(tt) / (n_phi * stride) > 64 else 1e-6
+        worst = 0.0
+        for r in range(vals.shape[0]):
+            if r in counts:
+                continue
+            err = float((got[:, r] - ref[:, r]).abs().max())
+            scale = float(ref[:, r].abs().max())
+            check(err <= tol * scale, f"fold {label}: row {r} {err} > {tol}*{scale}")
+            worst = max(worst, err / scale)
+            fold_err = max(fold_err, err)
+        print(f"fold kernel vs plain [{label}]: count rows {counts} bit-equal, "
+              f"weighted rows max|d|/max|row| {worst:.3e} (tolerance {tol:g})")
+
+    # phase 7b: unfactored spreading kernel vs plain, as for B1
+    grid_cases = {
+        "N=1e5 2^23": grid_draw(1 << 23, 0.5, seed=21),
+        "clustered 2^23": grid_draw(1 << 23, 0.5, seed=22, cluster_tile=1000),
+    }
+    grid_args = {}
+    grid_err = 0.0
+    for label, (ilo, ure, uim, lag) in grid_cases.items():
+        vals = cuda((ure + 1j * uim)[:, None] * lag).to(torch.complex64)
+        a = (cuda(ilo), vals, 1 << 23)
+        grid_args[label] = a
+        got = extirpolate_grid(*a)
+        ref = extirpolate_grid_plain(*a)
+        ref64 = extirpolate_grid_plain(a[0], vals.to(torch.complex128), a[2])
+        torch.cuda.synchronize()
+        scale = float(ref64.abs().max())
+        err = float((got - ref).abs().max())
+        err64 = float((got.to(torch.complex128) - ref64).abs().max())
+        print(f"unfactored spreading vs plain [{label}]: max|d| {err:.3e} (f32 plain), "
+              f"{err64:.3e} (f64 plain), max|grid| {scale:.3e}")
+        check(err <= 1e-5 * scale, f"{label}: unfactored vs f32 plain {err} > 1e-5*{scale}")
+        check(err64 <= 1e-6 * scale, f"{label}: unfactored vs f64 plain {err64} > 1e-6*{scale}")
+        grid_err = max(grid_err, err)
+    # its path is its own public entry point, at the main-path shape
+    extirpolate_grid.launches = 0
+    b3_out = extirpolate_grid(*grid_args["N=1e5 2^23"])
+    torch.cuda.synchronize()
+    b3_launches = extirpolate_grid.launches
+    check(b3_launches == 1 and bool(torch.isfinite(torch.view_as_real(b3_out)).all()),
+          "extirpolate_grid: one launch, finite grid")
+
+    # phase 8: BLS()(TSeries) at config 11 through the fold kernel
+    ts = TSeries(cuda(t), cuda(y))
+    kw = dict(p_min=0.5, p_max=100.0, n_periods=BLS_P, durations=BLS_DURATIONS,
+              nbins=BLS_NBINS, batch_size=BLS_BATCH)
+    torch.cuda.synchronize()
+    fold_onehot.launches = 0
+    bls = BLS(**kw)
+    pg = bls(ts)
+    torch.cuda.synchronize()
+    bls_launches = fold_onehot.launches
+    chunks = -(-BLS_P // BLS_BATCH)
+    print(f"BLS()(TSeries) config 11 on card: binner {bls._binner_resolved}, fold launches "
+          f"{bls_launches} ({chunks} chunks), best period {bls.best_period:.6f} (injected "
+          f"{PERIOD}), depth {bls.best_depth:.5f}, duration {bls.best_duration:.5f}, "
+          f"snr {bls.best_snr:.2f}")
+    check(bls._binner_resolved == "kernel", "BLS picked the kernel binner")
+    check(bls_launches == chunks, f"one fold launch per chunk: {bls_launches} != {chunks}")
+    check(abs(bls.best_period - PERIOD) <= 0.001 * PERIOD, f"best period {bls.best_period}")
+    power = pg.values
+    check(power.shape == (BLS_P,) and power.dtype == torch.float32
+          and bool(torch.isfinite(power).all()), "BLS power finite, [P] float32")
+    ref_bls = BLS(binner="scatter", **kw)
+    ref_pg = ref_bls(TSeries(cuda(t).double(), cuda(y).double()))
+    peak = float(ref_pg.values.max())
+    close = float(((power.double() - ref_pg.values).abs() <= 1e-4 * peak).double().mean())
+    print(f"BLS f32 kernel vs f64 scatter on card: best periods {bls.best_period:.6f} / "
+          f"{ref_bls.best_period:.6f}, share of periods within 1e-4 of peak {close:.5f}")
+    check(bls.best_period == ref_bls.best_period, "same best period as the f64 scatter scan")
+    check(close >= 0.95, f"only {close} of periods within 1e-4 of peak")
+
+    # phase 9: AoV, conditional entropy and Gregory-Loredo on the card
+    rng = np.random.default_rng(5)
+    tx = np.sort(rng.uniform(0, 200.0, BLS_N))
+    xs = np.sin(2 * np.pi * tx / PERIOD) + 0.2 * rng.standard_normal(BLS_N)
+    base = np.sort(rng.uniform(0, 1500.0, 9000))
+    keep = rng.random(9000) < 0.15 + 0.8 * np.exp(-0.5 * ((((base / 5.0) % 1) - 0.3) / 0.08) ** 2)
+    events = base[keep][:BLS_N]
+    check(events.size == BLS_N, "event draw holds N events")
+    for est, series, want, pick in (
+        (AoV(p_min=2.0, p_max=20.0, n_periods=10_000), TSeries(cuda(tx), cuda(xs)), PERIOD,
+         torch.argmax),
+        (ConditionalEntropy(p_min=2.0, p_max=12.0, n_periods=10_000),
+         TSeries(cuda(tx), cuda(xs)), PERIOD, torch.argmin),
+        (GregoryLoredo(p_min=2.0, p_max=10.0, n_periods=10_000),
+         TSeries(cuda(events), cuda(np.ones(BLS_N))), 5.0, torch.argmax),
+    ):
+        fold_onehot.launches = 0
+        out = est(series)
+        best = float(out.period[int(pick(out.values))])
+        torch.cuda.synchronize()
+        name = type(est).__name__
+        print(f"{name} on card: binner {est._binner_resolved}, fold launches "
+              f"{fold_onehot.launches}, best period {best:.5f} (injected {want})")
+        check(est._binner_resolved == "kernel" and fold_onehot.launches == -(-10_000 // 128),
+              f"{name} through the fold kernel")
+        check(abs(best - want) <= 0.01 * want, f"{name} best period {best}")
+
+    # phase 10: times (CUDA events, warmed, interleaved plain/kernel)
+    def timed(kernel, plain, args, reps_kernel, reps_plain):
+        kernel(*args)
+        plain(*args)
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn, reps = (kernel, reps_kernel) if which == "kernel" else (plain, reps_plain)
+            runs[which].append(event_ms(lambda: fn(*args), reps))
+        return {k: statistics.mean(v) for k, v in runs.items()}
+
+    fold_times = {}
+    for label in ("config 11 (N=2000, P=1e5, 2x256)", "AoV (3 rows x 9)",
+                  "CE (10 x 5, offsets)"):
+        fold_times[label] = timed(fold_onehot, fold_onehot_plain, fold_args[label], 20, 3)
+        print(f"fold [{label}]: kernel {fold_times[label]['kernel']:.4f} ms, plain "
+              f"{fold_times[label]['plain']:.4f} ms  ({card})")
+    a11 = fold_args["config 11 (N=2000, P=1e5, 2x256)"]
+    chunk_args = (a11[0], a11[1], a11[2][:BLS_BATCH]) + a11[3:]
+    chunk_times = timed(fold_onehot, fold_onehot_plain, chunk_args, 200, 50)
+    print(f"fold [config 11, one chunk of {BLS_BATCH} periods]: kernel "
+          f"{chunk_times['kernel']:.4f} ms, plain {chunk_times['plain']:.4f} ms  ({card})")
+    grid_times = timed(extirpolate_grid, extirpolate_grid_plain, grid_args["N=1e5 2^23"], 50, 20)
+    ilo3, vals3, nfft3 = grid_args["N=1e5 2^23"]
+    flat3 = (ilo3.long()[:, None] + torch.arange(4, device=dev)).reshape(-1)
+    vals3_re = torch.view_as_real(vals3).reshape(-1, 2)
+
+    def library_grid():
+        return torch.zeros(nfft3, 2, device=dev).index_add_(0, flat3, vals3_re)
+
+    library_grid()
+    library_ms = statistics.mean(event_ms(library_grid, 20) for _ in range(2))
+    print(f"unfactored spreading [N=1e5, 2^23]: kernel {grid_times['kernel']:.4f} ms, plain "
+          f"{grid_times['plain']:.4f} ms, one index_add_ {library_ms:.4f} ms  ({card})")
+
+    tc, yc, wc = cuda(t), cuda(y), cuda(w)
+    pc = cuda(bls_periods.astype(np.float32))
+
+    def chained(binner, k=3):
+        # K scans, each feeding the next (run_benchmarks.py:640-652)
+        yk = yc
+        acc = torch.zeros((), dtype=torch.float32, device=dev)
+        for _ in range(k):
+            p, _, _, _ = bls_scan(tc, yk, wc, pc, widths=BLS_WIDTHS, nbins=BLS_NBINS,
+                                  batch_size=BLS_BATCH, binner=binner)
+            yk = yk + p[0] * 1e-9
+            acc = acc + p[:8].sum()
+        return acc
+
+    for binner in ("kernel", "scatter"):
+        chained(binner, 1)
+    rates = {}
+    for binner in ("kernel", "scatter", "scatter", "kernel"):
+        rates.setdefault(binner, []).append(BLS_P / (event_ms(lambda: chained(binner), 1) / 3 / 1e3))
+    for binner, r in rates.items():
+        print(f"chained config-11 BLS scans (K=3, binner={binner}): {statistics.mean(r):.4e} "
+              f"trial-periods/s, runs {[f'{v:.4e}' for v in r]}  ({card})")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chained("kernel")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:  # kernels, copies and fills on the card
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_kernel.values())
+    check(busy > 0, "the profiler saw device work")
+    fold_us = sum(v for k, v in by_kernel.items() if "fold_kernel" in k)
+    print(f"profiler, chained K=3 config-11 scans (kernel binner): wall {wall * 1e3:.2f} ms, "
+          f"device busy {busy / 1e3:.2f} ms ({busy / 1e6 / wall:.1%}), fold kernel "
+          f"{fold_us / 1e3:.3f} ms ({fold_us / max(busy, 1e-9):.1%} of device time), "
+          f"{len(by_kernel)} kernel names  ({card})")
+    for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  device {v / 1e3:9.3f} ms  {k[:90]}")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    chained("kernel", 1)
+    torch.cuda.synchronize()
+    peak_mem = torch.cuda.max_memory_allocated() - held
+    print(f"peak device memory of one config-11 BLS scan, above the {held / 2**20:.1f} MiB "
+          f"already held: {peak_mem / 2**20:.1f} MiB  ({card})")
+
+    # bounds, from this run's inputs: each input read once, each output
+    # written once; the fold's operations are 5 per (period, sample) for
+    # the bin plus one add per value row
+    nv11 = a11[1].shape[0]
+    b2_bound = bound(BLS_N * 4 * (1 + nv11) + BLS_P * 4 + BLS_P * nv11 * BLS_NBINS * 4,
+                     BLS_P * BLS_N * (5 + nv11))
+    n3 = ilo3.shape[0]
+    b3_bound = bound(n3 * (4 + 4 * 8) + nfft3 * 8, n3 * 4 * 2)
+    return [
+        {
+            "name": "fold_onehot",
+            "route": "cuda",
+            "source": "periodicity_tpu_torch/csrc/fold.cu",
+            "replaces": "periodicity_tpu/ops/pallas_bls.py:126",
+            "launches": bls_launches,
+            "max_abs_err": fold_err,
+            "ms": fold_times["config 11 (N=2000, P=1e5, 2x256)"]["kernel"],
+            "plain_ms": fold_times["config 11 (N=2000, P=1e5, 2x256)"]["plain"],
+            "bound_ms": b2_bound[0],
+            "bound_by": b2_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "extirpolate_grid",
+            "route": "cuda",
+            "source": "periodicity_tpu_torch/csrc/extirpolate_grid.cu",
+            "replaces": "periodicity_tpu/ops/pallas_grid.py:132",
+            "launches": b3_launches,
+            "max_abs_err": grid_err,
+            "ms": grid_times["kernel"],
+            "plain_ms": grid_times["plain"],
+            "bound_ms": b3_bound[0],
+            "bound_by": b3_bound[1],
+            "library_ms": library_ms,
+        },
+    ]
 
 
 if __name__ == "__main__":

@@ -2,18 +2,21 @@
 
 The same estimator API as ``periodicity_tpu``, on torch tensors, with the
 TPU package's Pallas kernels rewritten by hand for NVIDIA Hopper. Ported
-so far: the GLS main path, ``GLS()(TSeries(t, y))``. Module layout mirrors
-the JAX package::
+so far: the GLS main path, ``GLS()(TSeries(t, y))``, and the phase-folding
+estimators (BLS, AoV, ConditionalEntropy, GregoryLoredo, PDM,
+StringLength). Non-tensor inputs land on the card unless ``device="cpu"``
+is asked for. Module layout mirrors the JAX package::
 
     periodicity_tpu_torch.core       TSeries / FSeries, from_jax
     periodicity_tpu_torch.spectral   GLS (+ gls_power)
-    periodicity_tpu_torch.ops        trig sums, spreading kernel, peaks
+    periodicity_tpu_torch.phase      BLS, AoV, PDM, ... (+ their scans)
+    periodicity_tpu_torch.ops        trig sums, spreading and fold kernels, peaks
 """
 
-from . import core, ops, spectral
+from . import core, ops, phase, spectral
 from .core import FSeries, TSeries
 
 __version__ = "0.1.0"
 name = "periodicity_tpu_torch"
 
-__all__ = ["TSeries", "FSeries", "core", "spectral", "ops"]
+__all__ = ["TSeries", "FSeries", "core", "spectral", "phase", "ops"]

@@ -8,7 +8,8 @@ __all__ = ["TSeries", "FSeries", "Signal", "as_tensor", "from_jax"]
 
 
 def from_jax(obj, device=None):
-    """The port's counterpart of a JAX-package object, on ``device``.
+    """The port's counterpart of a JAX-package object, on ``device`` (the
+    card when None; pass ``device="cpu"`` for the CPU).
 
     A ``periodicity_tpu`` TSeries or FSeries becomes the port's container
     (its ``attrs`` copied as numpy arrays); an array (numpy or JAX) becomes

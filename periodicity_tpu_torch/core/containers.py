@@ -3,10 +3,14 @@
 Port of the slice of ``periodicity_tpu/core/containers.py`` that the GLS
 path uses: the constructors (sorting by coordinate), the shape surface,
 ``argmax``/``max``, the time-grid properties of ``TSeries`` and the
-peak readout of ``FSeries``. Values and coordinates stay on the device
-and in the dtype they were given; array-likes that are not tensors go
-through numpy first, so Python floats become float64 as under JAX's x64
-mode. The peak kernels are imported when first used.
+peak readout of ``FSeries``. Tensors keep their device and dtype.
+Array-likes that are not tensors go through numpy first, so Python floats
+become float64 as under JAX's x64 mode, and land on the card
+(``torch.device("cuda")``) unless ``device`` says otherwise; a coordinate
+given as an array-like follows its values' device. Without a CUDA device
+and without ``device="cpu"`` (or CPU tensors) construction raises: it
+never falls back to the CPU quietly. The peak kernels are imported when
+first used.
 """
 
 import numpy as np
@@ -15,11 +19,34 @@ import torch
 __all__ = ["Signal", "TSeries", "FSeries", "as_tensor"]
 
 
+def _default_device(device=None):
+    """``device`` as a ``torch.device``; None means the card, and raises
+    where there is none."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' or CPU tensors to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def as_tensor(x, device=None):
-    """``x`` as a tensor, keeping its dtype (non-tensors go through numpy)."""
+    """``x`` as a tensor, keeping its dtype (non-tensors go through numpy).
+    A tensor stays on its device unless ``device`` is given; anything else
+    goes to ``device``, or to the card when that is None."""
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
-    return torch.from_numpy(np.array(x)).to(device)
+    return torch.from_numpy(np.array(x)).to(_default_device(device))
+
+
+def _place(x, device, follow):
+    """A tensor ``x`` keeps its device unless ``device`` is given; an
+    array-like goes to ``device``, else to the device of ``follow`` when
+    that is a tensor, else to the card."""
+    if device is None and not isinstance(x, torch.Tensor) and isinstance(follow, torch.Tensor):
+        device = follow.device
+    return as_tensor(x, device)
 
 
 def _median(x):
@@ -70,16 +97,16 @@ class Signal:
 class TSeries(Signal):
     """1-D time-indexed series (reference core.py:460-856)."""
 
-    def __init__(self, time=None, values=None, assume_sorted=False):
+    def __init__(self, time=None, values=None, assume_sorted=False, device=None):
         if time is None and values is None:
             raise ValueError("Either time or values must be given.")
         if values is None:
-            time = as_tensor(time)
+            time = _place(time, device, None)
             values = torch.ones(time.shape[0], dtype=torch.float64, device=time.device)
-        values = as_tensor(values)
+        values = _place(values, device, time)
         if time is None:
             time = torch.arange(values.shape[0], device=values.device)
-        time = as_tensor(time)
+        time = _place(time, device, values)
         if time.shape[0] != values.shape[0]:
             raise ValueError("Input arrays have incompatible lengths.")
         if time.device != values.device:
@@ -118,14 +145,14 @@ class FSeries(Signal):
     """1-D frequency-indexed series with a dual period coordinate
     (reference core.py:859-1027)."""
 
-    def __init__(self, frequency=None, values=None, assume_sorted=False):
+    def __init__(self, frequency=None, values=None, assume_sorted=False, device=None):
         if frequency is None:
             raise ValueError("frequency must be given.")
-        frequency = as_tensor(frequency)
+        frequency = _place(frequency, device, values)
         if values is None:
             values = torch.ones(frequency.shape[0], dtype=torch.float64,
                                 device=frequency.device)
-        values = as_tensor(values)
+        values = _place(values, device, frequency)
         frequency = frequency.to(values.device)
         if frequency.shape[0] != values.shape[0]:
             raise ValueError("Input arrays have incompatible lengths.")

@@ -1,11 +1,17 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-``csrc/*.cu`` has a plain C interface. ``build()`` compiles it with nvcc
-for Hopper (``sm_90a``) into a shared library under ``build/kernels/`` at
-the root of the checkout, named by a hash of the source and the flags, so
-an edited source is never served by a stale library. ``load()`` binds it
-with ctypes at first use, building it if it is missing. No PyTorch header
-is included, which keeps the build to seconds.
+Every ``csrc/*.cu`` has a plain C interface. ``build()`` compiles each
+source with nvcc for Hopper (``sm_90a``), one nvcc process per source, all
+started together, and links the objects into one shared library under
+``build/kernels/`` at the root of the checkout. The library is named by a
+hash over all the sources and the flags, so an edited or added source is
+never served by a stale library. ``load()`` binds every entry point in
+``ENTRY_POINTS`` with ctypes at first use, building the library if it is
+missing. No PyTorch header is included, which keeps the build to seconds.
+
+Each entry point launches on the stream it is given, without
+synchronising, and returns ``cudaGetLastError()``; its wrapper raises if
+that is not 0.
 """
 
 import ctypes
@@ -16,21 +22,39 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["build", "load"]
+__all__ = ["build", "load", "ENTRY_POINTS"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "extirpolate_grid.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC"]
+_COMPILE = [*_ARCH, "-c", "-Xptxas", "-v"]
+_LINK = [*_ARCH, "-shared"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C name -> argtypes (pointers and the stream as void*, sizes as int)
+ENTRY_POINTS = {
+    # ilo, u_re, u_im, lag, n, taps, nfft, out_re, out_im, stream
+    "extirpolate_grid_factored_f32": [_P] * 4 + [_I] * 3 + [_P] * 3,
+    # ilo, vals_re, vals_im, n, nfft, out_re, out_im, out_c, stream
+    "extirpolate_grid_f32": [_P] * 3 + [_I] * 2 + [_P] * 4,
+    # t, values, offsets, freqs, n, nv, p, n_phi, stride, out, stream
+    "fold_onehot_f32": [_P] * 4 + [_I] * 5 + [_P] * 2,
+}
 
 _LIB = None
 
 
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
 def _lib_path():
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_COMPILE + _LINK).encode())
+    for src in _sources():
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libperiodicity_kernels_{digest.hexdigest()[:16]}.so"
 
 
@@ -48,27 +72,38 @@ def build():
     (registers, shared memory and spills of each kernel)."""
     path = _lib_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
+    # objects and the library go to private names, then the library is
+    # renamed into place: a concurrent build never loads a half-written file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *_COMPILE, "-o", str(obj), str(src)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        reports = []
+        failed = []
+        for src, _, proc in procs:
+            _, err = proc.communicate(timeout=600)
+            reports.append(f"== {src.name}\n{err}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib_tmp = Path(tmp) / path.name
         proc = subprocess.run(
-            [_nvcc(), *_FLAGS, "-o", tmp, str(SOURCE)],
+            [nvcc, *_LINK, "-o", str(lib_tmp), *(str(o) for _, o, _ in procs)],
             capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib_tmp, path)
     seconds = time.perf_counter() - t0
-    path.with_suffix(".ptxas.txt").write_text(proc.stderr)
-    return {"path": str(path), "seconds": seconds, "ptxas": proc.stderr}
+    ptxas = "\n".join(reports)
+    path.with_suffix(".ptxas.txt").write_text(ptxas)
+    return {"path": str(path), "seconds": seconds, "ptxas": ptxas}
 
 
 def load():
@@ -79,8 +114,9 @@ def load():
         if not path.exists():
             build()
         lib = ctypes.CDLL(str(path))
-        fn = lib.extirpolate_grid_factored_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-        fn.restype = ctypes.c_int
+        for name, argtypes in ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

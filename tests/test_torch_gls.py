@@ -91,11 +91,11 @@ def test_gls_slice_matches_jax(dtype, n):
     jg = JGLS()
     ref = jg(JTSeries(t, y))
     g = GLS()
-    got = g(TSeries(t, y))
+    got = g(TSeries(t, y, device="cpu"))
     assert g._gridder_resolved == "scatter"
     assert got.values.shape[0] == ref.values.shape[0]
     np.testing.assert_array_equal(got.frequency.numpy(), np.asarray(ref.frequency))
-    assert float(TSeries(t, y).median_dt) == float(JTSeries(t, y).median_dt)
+    assert float(TSeries(t, y, device="cpu").median_dt) == float(JTSeries(t, y).median_dt)
     _assert_power_close(got.values, ref.values, dtype)
     p_ref = float(ref.period_at_highest_peak)
     p_got = float(got.period_at_highest_peak)
@@ -105,15 +105,15 @@ def test_gls_slice_matches_jax(dtype, n):
 
 def test_median_dt_averages_middle_intervals():
     t = np.array([0.0, 1.0, 3.0, 6.0, 10.0])  # intervals 1, 2, 3, 4
-    assert float(TSeries(t, np.ones(5)).median_dt) == 2.5
-    assert float(TSeries(t[:4], np.ones(4)).median_dt) == 2.0
+    assert float(TSeries(t, np.ones(5), device="cpu").median_dt) == 2.5
+    assert float(TSeries(t[:4], np.ones(4), device="cpu").median_dt) == 2.0
 
 
 def test_tseries_sorts_and_gls_defaults():
     rng = np.random.default_rng(11)
     t = rng.uniform(0, 10, 50)
     y = rng.standard_normal(50)
-    ts = TSeries(t, y)
+    ts = TSeries(t, y, device="cpu")
     order = np.argsort(t, kind="stable")
     np.testing.assert_array_equal(ts.time.numpy(), t[order])
     np.testing.assert_array_equal(ts.values.numpy(), y[order])
@@ -130,10 +130,32 @@ def test_tseries_sorts_and_gls_defaults():
         GLS(nterms=2)
 
 
+def test_card_is_the_default_device(monkeypatch):
+    """Array-likes land on the card. Without one, construction raises
+    unless the CPU is asked for; a coordinate follows its values' device."""
+    t, y = np.arange(5.0), np.ones(5)
+    if torch.cuda.is_available():
+        assert TSeries(t, y).time.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TSeries(t, y)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: TSeries(t, y), lambda: TSeries(values=y), lambda: FSeries(t + 1, y),
+                 lambda: from_jax(y)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    ts = TSeries(t, y, device="cpu")
+    assert ts.time.device.type == "cpu" and ts.values.device.type == "cpu"
+    assert TSeries(t, torch.ones(5)).time.device.type == "cpu"
+    assert TSeries(torch.from_numpy(t), y).values.device.type == "cpu"
+    assert FSeries(t + 1, torch.ones(5)).frequency.device.type == "cpu"
+    assert from_jax(y, device="cpu").device.type == "cpu"
+
+
 def test_from_jax_round_trip():
     t, y, _ = _curve(n=300, dtype=np.float32)
     jts = JTSeries(t, y)
-    ts = from_jax(jts)
+    ts = from_jax(jts, device="cpu")
     assert isinstance(ts, TSeries)
     assert ts.values.dtype == torch.float32 and ts.time.dtype == torch.float32
     np.testing.assert_array_equal(ts.time.numpy(), np.asarray(jts.time))
@@ -141,21 +163,21 @@ def test_from_jax_round_trip():
 
     jp = JGLS()(JTSeries(t.astype(np.float64), y.astype(np.float64)))
     jp.attrs["note"] = np.arange(3)
-    fs = from_jax(jp)
+    fs = from_jax(jp, device="cpu")
     assert isinstance(fs, FSeries) and fs.values.dtype == torch.float64
     np.testing.assert_array_equal(fs.frequency.numpy(), np.asarray(jp.frequency))
     np.testing.assert_array_equal(fs.values.numpy(), np.asarray(jp.values))
     np.testing.assert_array_equal(fs.attrs["note"], np.arange(3))
     assert float(fs.period_at_highest_peak) == float(jp.period_at_highest_peak)
 
-    a, b = from_jax((np.arange(4, dtype=np.float32), jp.values))
+    a, b = from_jax((np.arange(4, dtype=np.float32), jp.values), device="cpu")
     assert a.dtype == torch.float32 and b.dtype == torch.float64
 
 
 def test_find_peaks_matches_jax_on_periodogram():
     t, y, _ = _curve(n=1500, seed=5)
     jp = JGLS()(JTSeries(t, y))
-    fs = from_jax(jp)
+    fs = from_jax(jp, device="cpu")
     ref = jp.find_peaks()
     got = fs.find_peaks()
     np.testing.assert_array_equal(got.attrs["indices"].numpy(), ref.attrs["indices"])

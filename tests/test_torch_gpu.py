@@ -1,4 +1,5 @@
-"""The CUDA spreading kernel and the GLS path on the card.
+"""The CUDA kernels (spreading, unfactored spreading, phase fold) against
+their plain versions, and the GLS and BLS paths, on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the device and
 skips where there is none. Run on a GPU machine without the repo's
@@ -12,10 +13,13 @@ import pytest
 import torch
 
 from periodicity_tpu_torch import TSeries
+from periodicity_tpu_torch.ops.fold import fold_onehot, fold_onehot_plain
+from periodicity_tpu_torch.ops.grid import extirpolate_grid, extirpolate_grid_plain
 from periodicity_tpu_torch.ops.grid2 import (
     extirpolate_grid_factored,
     extirpolate_grid_factored_plain,
 )
+from periodicity_tpu_torch.phase import BLS
 from periodicity_tpu_torch.spectral import GLS, default_frequency_grid, gls_power
 
 pytestmark = pytest.mark.gpu
@@ -93,7 +97,7 @@ def test_gls_on_card_matches_cpu(cuda, dtype):
     rng = np.random.default_rng(0)
     t = np.sort(rng.uniform(0, 100, 2000)).astype(dtype)
     y = (np.sin(2 * np.pi * t / 7.7) + 0.3 * rng.standard_normal(2000)).astype(dtype)
-    ref = GLS()(TSeries(t, y))
+    ref = GLS()(TSeries(t, y, device="cpu"))
     g = GLS()
     before = extirpolate_grid_factored.launches
     got = g(TSeries(torch.from_numpy(t).to(cuda), torch.from_numpy(y).to(cuda)))
@@ -122,3 +126,114 @@ def test_gls_direct_on_card_matches_cpu_and_oracle(cuda):
     peak = float(cpu.max())
     assert float((direct.cpu() - cpu).abs().max()) <= 1e-9 * peak
     assert float((oracle - direct).abs().max()) <= 1e-8 * peak
+
+
+@pytest.mark.parametrize(
+    "n,nfft,lo,hi",
+    [
+        (50, 2048, 0, 2044),
+        (5000, 1 << 16, 1000, 1200),  # many samples in one tile
+        (3000, 1 << 14, (1 << 14) - 300, (1 << 14) - 4),  # clustered at the end
+        (100_000, 1 << 23, 0, (1 << 22) - 4),
+        (0, 1 << 12, 0, 1),
+    ],
+)
+def test_unfactored_kernel_matches_plain(cuda, n, nfft, lo, hi):
+    rng = np.random.default_rng(n + nfft)
+    ilo = torch.from_numpy(np.sort(rng.integers(lo, hi, n)).astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.standard_normal((n, 4)) + 1j * rng.standard_normal((n, 4))
+                            ).to(torch.complex64).to(cuda)
+    before = extirpolate_grid.launches
+    got = extirpolate_grid(ilo, vals, nfft)
+    assert extirpolate_grid.launches == before + 1
+    ref = extirpolate_grid_plain(ilo, vals.to(torch.complex128), nfft)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.complex64 and got.shape == (nfft,)
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got.to(torch.complex128) - ref).abs().max()) <= 1e-6 * scale
+    re, im = extirpolate_grid(ilo, vals, nfft, as_complex=False)
+    assert torch.equal(re, got.real) and torch.equal(im, got.imag)  # deterministic
+
+
+def _fold_draw(n, nv, epoch, seed):
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, 200.0, n)) + epoch
+    x = rng.standard_normal(n)
+    values = np.stack([np.ones(n), x, x * x][:nv]).astype(np.float32)
+    return t, x, values
+
+
+@pytest.mark.parametrize(
+    "n,p,nv,n_phi,stride,epoch",
+    [
+        (2000, 1000, 2, 256, 1, 0.0),  # the BLS shape
+        (2000, 300, 3, 9, 1, 0.0),  # AoV: counts, sums, squares
+        (2000, 300, 1, 10, 5, 0.0),  # conditional entropy: offsets
+        (1999, 333, 2, 64, 1, 2.45e6),  # ragged N and P, float64 times at a BJD epoch
+        (30_000, 100, 2, 256, 1, 0.0),  # too large to stage: read from global memory
+        (700, 50, 1, 7000, 1, 0.0),  # histograms above 48 KB of shared memory
+    ],
+)
+def test_fold_kernel_matches_plain(cuda, n, p, nv, n_phi, stride, epoch):
+    t, x, values = _fold_draw(n, nv, epoch, seed=n + p)
+    tt = torch.from_numpy(t if epoch else t.astype(np.float32)).to(cuda)
+    vt = torch.from_numpy(values).to(cuda)
+    freqs = torch.from_numpy(1.0 / np.linspace(0.5, 100.0, p)).to(cuda)
+    offsets = None
+    if stride > 1:
+        offsets = torch.from_numpy(np.clip(((x - x.min()) / np.ptp(x) * stride).astype(np.int32),
+                                           0, stride - 1)).to(cuda)
+    before = fold_onehot.launches
+    got = fold_onehot(tt, vt, freqs, n_phi, stride=stride, offsets=offsets)
+    assert fold_onehot.launches == before + 1
+    ref = fold_onehot_plain(tt, vt, freqs, n_phi, stride=stride, offsets=offsets)
+    torch.cuda.synchronize()
+    assert got.shape == (p, nv, n_phi * stride) and got.dtype == torch.float32
+    # counts are integers below 2^24: bit-equal; weighted rows up to the
+    # order of the f32 additions, whose rounding grows with the square root
+    # of the samples in a bin (~220 per bin at the AoV shape)
+    assert torch.equal(got[:, 0], ref[:, 0])
+    assert torch.equal(got[:, 0].sum(-1), torch.full((p,), float(n), device=cuda))
+    tol = 1e-5 if n / (n_phi * stride) > 64 else 1e-6
+    for v in range(1, nv):
+        scale = float(ref[:, v].abs().max())
+        assert float((got[:, v] - ref[:, v]).abs().max()) <= tol * scale
+
+
+def test_fold_kernel_rejects_what_it_does_not_take(cuda):
+    t, _, values = _fold_draw(100, 2, 0.0, seed=0)
+    tt, vt = torch.from_numpy(t).to(cuda), torch.from_numpy(values).to(cuda)
+    freqs = torch.linspace(0.1, 1.0, 10, device=cuda)
+    with pytest.raises(ValueError, match="shared"):
+        fold_onehot(tt, vt, freqs, 4000)
+    with pytest.raises(ValueError):
+        fold_onehot(tt, vt.cpu(), freqs, 16)
+    with pytest.raises(ValueError):
+        fold_onehot(tt, vt[:, :50], freqs, 16)
+    with pytest.raises(TypeError):
+        fold_onehot(tt, vt, freqs, 16, stride=2, offsets=torch.zeros(100, device=cuda))
+
+
+def test_bls_on_card_through_the_kernel(cuda):
+    """BLS on the card resolves to the kernel binner, launches once per
+    chunk of periods, and finds the period the CPU scatter scan finds."""
+    rng = np.random.default_rng(0)
+    n = 2000
+    t = np.sort(rng.uniform(0, 200.0, n)).astype(np.float32)
+    y = (np.where((t / 7.7) % 1.0 < 0.05, -0.02, 0.0)
+         + 0.005 * rng.standard_normal(n)).astype(np.float32)
+    kw = dict(p_min=0.5, p_max=100.0, n_periods=5000, batch_size=512,
+              durations=(3 / 256, 6 / 256, 13 / 256, 26 / 256))
+    est = BLS(**kw)
+    before = fold_onehot.launches
+    got = est(TSeries(torch.from_numpy(t).to(cuda), torch.from_numpy(y).to(cuda)))
+    assert est._binner_resolved == "kernel"
+    assert fold_onehot.launches - before == -(-5000 // 512)
+    assert got.values.device.type == "cuda" and got.attrs["depth"].device.type == "cuda"
+    ref_est = BLS(**kw)
+    ref = ref_est(TSeries(t.astype(np.float64), y.astype(np.float64), device="cpu"))
+    assert est.best_period == ref_est.best_period
+    assert abs(est.best_period - 7.7) <= 0.001 * 7.7
+    peak = float(ref.values.max())
+    close = (got.values.cpu().double() - ref.values).abs() <= 1e-4 * peak
+    assert float(close.double().mean()) >= 0.95
