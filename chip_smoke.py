@@ -16,7 +16,8 @@ kernels, and checks every phase:
 6. GLS times: kernel vs plain, chained periodograms, peak device memory;
 7. the phase-fold kernel agrees with its plain version at the BLS
    benchmark shape (config 11: N = 2000, 1e5 trial periods, 2 rows of 256
-   bins), the AoV and conditional-entropy shapes and an edge draw (counts
+   bins), the AoV and conditional-entropy shapes, each in one launch and at
+   the chunk of periods the scans launch, and an edge draw (counts
    bit-equal); the unfactored spreading kernel agrees with its plain
    version at N = 1e5, 2^23 cells and on a clustered draw;
 8. ``BLS()(TSeries(t, y))`` at config 11 on the card goes through the fold
@@ -24,9 +25,13 @@ kernels, and checks every phase:
    period and agrees with the float64 scatter scan;
 9. ``AoV``, ``ConditionalEntropy`` and ``GregoryLoredo`` on the card find
    their injected periods through the fold kernel;
-10. phase-slice times: fold and unfactored spreading kernels vs plain, the
-   chained config-11 BLS rate with the device-busy share from one profiler
-   window, and the peak device memory of one scan.
+10. phase-slice times: fold and unfactored spreading kernels vs plain; the
+   fold at the shape the scan launches it (one 512-period config-11
+   chunk) by CUDA events over back-to-back launches and by the profiler's
+   device time per launch, and the wrapper's host time per launch; the
+   chained config-11 BLS rate with the device-busy share and the fold's
+   device time per scan from one profiler window; the peak device memory
+   of one scan.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (one GPU).
 Any failure raises and the exit code is non-zero. The line before the
@@ -113,6 +118,39 @@ def bls_draw():
     phi = (t / PERIOD) % 1.0
     y = (np.where(phi < 0.05, -0.02, 0.0) + 0.005 * rng.standard_normal(BLS_N)).astype(np.float32)
     return t, y
+
+
+def host_us(fn, reps=200):
+    """Mean host time in microseconds of ``fn`` over ``reps`` back-to-back
+    calls that enqueue work without waiting for it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e6
+
+
+def device_us(fn, name, reps):
+    """(device time in microseconds per call of ``fn``, count) of the
+    kernels whose name holds ``name`` (every kernel for ``""``), over
+    ``reps`` calls in one profiler window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(times) / reps, len(times)
 
 
 def event_ms(fn, reps):
@@ -280,6 +318,9 @@ def main():
         times[label] = {k: statistics.mean(v) for k, v in runs.items()}
         print(f"spreading [{label}, N={N}]: kernel {times[label]['kernel']:.4f} ms, "
               f"plain index_add_ {times[label]['plain']:.4f} ms  ({card})")
+    clustered_ms = event_ms(lambda: extirpolate_grid_factored(*args["clustered 2^23"]), 5)
+    print(f"spreading [clustered 2^23, half the samples in one 2048-cell tile]: kernel "
+          f"{clustered_ms:.4f} ms  ({card})")
 
     def chained(gridder, k=20):
         yk = yc
@@ -358,15 +399,25 @@ def phase_slice(dev, card, cuda):
     x = np.sin(2 * np.pi * t / PERIOD) + 0.2 * rng.standard_normal(BLS_N)
     xb = np.clip(((x - x.min()) / np.ptp(x) * 5).astype(np.int32), 0, 4)
     bls_periods = np.linspace(0.5, 100.0, BLS_P)
+    aov_vals = np.stack([np.ones_like(x), x, x * x]).astype(np.float32)
+    aov_periods = np.linspace(2.0, 20.0, 10_000)
+    ce_vals = np.ones((1, BLS_N), np.float32)
+    ce_periods = np.linspace(2.0, 12.0, 10_000)
     t_edge = np.sort(rng.uniform(0, 1400.0, 1999)) + 2.45e6  # BJD epoch, float64
+    # The chunk cases are the launches the scans make (the first chunk of
+    # each period grid: 512 periods for BLS, 128 for the other estimators),
+    # which take the kernel's 512-thread blocks; the one-launch cases take
+    # its 256-thread blocks.
     fold_cases = {
         # label: (t, values [nv, N], periods, n_phi, stride, offsets, count rows)
         "config 11 (N=2000, P=1e5, 2x256)": (t, np.stack([w, wyc]), bls_periods, 256, 1,
                                             None, []),
-        "AoV (3 rows x 9)": (t, np.stack([np.ones_like(x), x, x * x]).astype(np.float32),
-                             np.linspace(2.0, 20.0, 10_000), 9, 1, None, [0]),
-        "CE (10 x 5, offsets)": (t, np.ones((1, BLS_N), np.float32),
-                                 np.linspace(2.0, 12.0, 10_000), 10, 5, xb, [0]),
+        "config 11 chunk (512 periods)": (t, np.stack([w, wyc]), bls_periods[:BLS_BATCH], 256,
+                                          1, None, []),
+        "AoV (3 rows x 9)": (t, aov_vals, aov_periods, 9, 1, None, [0]),
+        "AoV chunk (128 periods)": (t, aov_vals, aov_periods[:128], 9, 1, None, [0]),
+        "CE (10 x 5, offsets)": (t, ce_vals, ce_periods, 10, 5, xb, [0]),
+        "CE chunk (128 periods, offsets)": (t, ce_vals, ce_periods[:128], 10, 5, xb, [0]),
         "edge (N=1999, P=9999, BJD f64)": (
             t_edge, np.stack([np.ones(1999), rng.standard_normal(1999)]).astype(np.float32),
             np.linspace(0.5, 100.0, 9999), 64, 1, None, [0]),
@@ -503,10 +554,16 @@ def phase_slice(dev, card, cuda):
         print(f"fold [{label}]: kernel {fold_times[label]['kernel']:.4f} ms, plain "
               f"{fold_times[label]['plain']:.4f} ms  ({card})")
     a11 = fold_args["config 11 (N=2000, P=1e5, 2x256)"]
-    chunk_args = (a11[0], a11[1], a11[2][:BLS_BATCH]) + a11[3:]
+    chunk_args = fold_args["config 11 chunk (512 periods)"]
     chunk_times = timed(fold_onehot, fold_onehot_plain, chunk_args, 200, 50)
+    chunk_dev_us, chunk_dev_n = device_us(lambda: fold_onehot(*chunk_args), "fold_kernel", 50)
+    check(chunk_dev_n == 50, f"the profiler saw 50 fold launches, got {chunk_dev_n}")
+    chunk_host = [host_us(lambda: fold_onehot(*chunk_args)) for _ in range(2)]
     print(f"fold [config 11, one chunk of {BLS_BATCH} periods]: kernel "
-          f"{chunk_times['kernel']:.4f} ms, plain {chunk_times['plain']:.4f} ms  ({card})")
+          f"{chunk_times['kernel'] * 1e3:.2f} us per launch by events back to back, "
+          f"{chunk_dev_us:.2f} us of device time per launch by the profiler, plain "
+          f"{chunk_times['plain']:.4f} ms; wrapper host time {statistics.mean(chunk_host):.2f} "
+          f"us per launch ({card})")
     grid_times = timed(extirpolate_grid, extirpolate_grid_plain, grid_args["N=1e5 2^23"], 50, 20)
     ilo3, vals3, nfft3 = grid_args["N=1e5 2^23"]
     flat3 = (ilo3.long()[:, None] + torch.arange(4, device=dev)).reshape(-1)
@@ -516,9 +573,25 @@ def phase_slice(dev, card, cuda):
         return torch.zeros(nfft3, 2, device=dev).index_add_(0, flat3, vals3_re)
 
     library_grid()
-    library_ms = statistics.mean(event_ms(library_grid, 20) for _ in range(2))
-    print(f"unfactored spreading [N=1e5, 2^23]: kernel {grid_times['kernel']:.4f} ms, plain "
-          f"{grid_times['plain']:.4f} ms, one index_add_ {library_ms:.4f} ms  ({card})")
+    library_events = statistics.mean(event_ms(library_grid, 20) for _ in range(2))
+    # and device time per call from the profiler: the wrapper's host time
+    # per call comes near the kernel's device time, so back-to-back events
+    # through the wrapper can measure the host
+    b3_dev_us, b3_dev_n = device_us(lambda: extirpolate_grid(*grid_args["N=1e5 2^23"]),
+                                    "spread_walk", 20)
+    check(b3_dev_n == 20, f"the profiler saw 20 unfactored spreading launches, got {b3_dev_n}")
+    library_dev_us, _ = device_us(library_grid, "", 20)
+    print(f"unfactored spreading [N=1e5, 2^23]: by events back to back, kernel "
+          f"{grid_times['kernel']:.4f} ms, one index_add_ {library_events:.4f} ms, plain "
+          f"{grid_times['plain']:.4f} ms; device time per call (profiler), kernel "
+          f"{b3_dev_us / 1e3:.4f} ms, one index_add_ {library_dev_us / 1e3:.4f} ms (zero-fill "
+          f"and index_add_)  ({card})")
+
+    # a heavily clustered draw (half the samples in one 2048-cell tile),
+    # whose samples overflow the kernel's ring of staged samples
+    clustered_ms = event_ms(lambda: extirpolate_grid(*grid_args["clustered 2^23"]), 5)
+    print(f"unfactored spreading [clustered 2^23, half the samples in one 2048-cell tile]: "
+          f"kernel {clustered_ms:.4f} ms  ({card})")
 
     tc, yc, wc = cuda(t), cuda(y), cuda(w)
     pc = cuda(bls_periods.astype(np.float32))
@@ -560,8 +633,8 @@ def phase_slice(dev, card, cuda):
     fold_us = sum(v for k, v in by_kernel.items() if "fold_kernel" in k)
     print(f"profiler, chained K=3 config-11 scans (kernel binner): wall {wall * 1e3:.2f} ms, "
           f"device busy {busy / 1e3:.2f} ms ({busy / 1e6 / wall:.1%}), fold kernel "
-          f"{fold_us / 1e3:.3f} ms ({fold_us / max(busy, 1e-9):.1%} of device time), "
-          f"{len(by_kernel)} kernel names  ({card})")
+          f"{fold_us / 1e3:.3f} ms ({fold_us / max(busy, 1e-9):.1%} of device time; "
+          f"{fold_us / 3e3:.3f} ms per scan), {len(by_kernel)} kernel names  ({card})")
     for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  device {v / 1e3:9.3f} ms  {k[:90]}")
     torch.cuda.synchronize()
@@ -579,6 +652,8 @@ def phase_slice(dev, card, cuda):
     nv11 = a11[1].shape[0]
     b2_bound = bound(BLS_N * 4 * (1 + nv11) + BLS_P * 4 + BLS_P * nv11 * BLS_NBINS * 4,
                      BLS_P * BLS_N * (5 + nv11))
+    b2_chunk_bound = bound(BLS_N * 4 * (1 + nv11) + BLS_BATCH * 4
+                           + BLS_BATCH * nv11 * BLS_NBINS * 4, BLS_BATCH * BLS_N * (5 + nv11))
     n3 = ilo3.shape[0]
     b3_bound = bound(n3 * (4 + 4 * 8) + nfft3 * 8, n3 * 4 * 2)
     return [
@@ -594,11 +669,19 @@ def phase_slice(dev, card, cuda):
             "bound_ms": b2_bound[0],
             "bound_by": b2_bound[1],
             "library_ms": None,
+            # the shape the scan launches: one 512-period chunk
+            "chunk_ms": chunk_times["kernel"],
+            "chunk_device_ms": chunk_dev_us / 1e3,
+            "chunk_plain_ms": chunk_times["plain"],
+            "chunk_bound_ms": b2_chunk_bound[0],
+            "chunk_bound_by": b2_chunk_bound[1],
+            "chunk_host_ms": statistics.mean(chunk_host) / 1e3,
+            "scan_device_ms": fold_us / 3e3,
         },
         {
             "name": "extirpolate_grid",
             "route": "cuda",
-            "source": "periodicity_tpu_torch/csrc/extirpolate_grid.cu",
+            "source": "periodicity_tpu_torch/csrc/extirpolate_grid_walk.cu",
             "replaces": "periodicity_tpu/ops/pallas_grid.py:132",
             "launches": b3_launches,
             "max_abs_err": grid_err,
@@ -606,7 +689,11 @@ def phase_slice(dev, card, cuda):
             "plain_ms": grid_times["plain"],
             "bound_ms": b3_bound[0],
             "bound_by": b3_bound[1],
-            "library_ms": library_ms,
+            "library_ms": library_events,
+            # device time per call from the profiler, for the kernel and
+            # for the one index_add_ call alike
+            "device_ms": b3_dev_us / 1e3,
+            "library_device_ms": library_dev_us / 1e3,
         },
     ]
 

@@ -1,31 +1,24 @@
 // Press-Rybicki spreading ("extirpolation") onto an nfft grid, for Hopper
 // (sm_90a). Plain C interface, loaded with ctypes by
-// periodicity_tpu_torch/ops/_kernels.py. One kernel template, two entry
-// points:
+// periodicity_tpu_torch/ops/_kernels.py.
 //
 // extirpolate_grid_factored_f32 replaces the TPU kernel
 // periodicity_tpu/ops/pallas_grid2.py::extirpolate_grid_factored:
 //
 //     re[ilo[i] + j] += u_re[i] * lag[i, j]
-//     im[ilo[i] + j] += u_im[i] * lag[i, j]      for j < taps;
+//     im[ilo[i] + j] += u_im[i] * lag[i, j]      for j < taps,
 //
-// extirpolate_grid_f32 replaces the TPU kernel
-// periodicity_tpu/ops/pallas_grid.py::extirpolate_grid, the same spreading
-// from unfactored per-tap complex values (4 taps):
+// with ilo sorted ascending and ilo[i] + taps <= nfft (no wrap), into two
+// f32 planes. The kernel template also takes unfactored per-tap values
+// (kFactored = false); the unfactored entry point now runs its own design,
+// extirpolate_grid_walk.cu, and this template stays as the factored
+// kernel's until that design replaces it here too.
 //
-//     re[ilo[i] + j] += vals_re[i, j],   im[ilo[i] + j] += vals_im[i, j].
-//
-// Both take ilo sorted ascending with ilo[i] + taps <= nfft (no wrap). The
-// factored form writes two f32 planes; the unfactored one writes either
-// two planes or one interleaved complex64 grid (re, im pairs).
-//
-// What bounds them on the card: the plane writes. The GLS main path spreads
+// What bounds it on the card: the plane writes. The GLS main path spreads
 // N = 1e5 samples onto 2^23 and 2^22 cells, i.e. 64 MB + 32 MB of f32
 // output per periodogram against ~3 MB of input (about 20 us + 10 us at
 // 3.35 TB/s), so the kernel is a store-bandwidth kernel with a sparse
-// gather on the side. The unfactored form reads 36 B per sample instead
-// of 28 B and writes the same planes: at N = 1e5 and 2^23 cells that is
-// 67 MB of writes against 3.6 MB of reads, again about 21 us.
+// gather on the side.
 //
 // What the design does about it: every cell of both planes is written
 // exactly once, with 16-byte vector stores, and nothing else touches the
@@ -169,24 +162,13 @@ int launch_spread(const int* ilo, const float* a_re, const float* a_im,
 
 }  // namespace
 
-// Both entry points launch on `stream` without synchronising and return
+// Launches on `stream` without synchronising and returns
 // cudaGetLastError() (0 on success). The caller checks shapes, dtypes and
-// contiguity; for the factored form 1 <= taps <= 16 (the shared-memory
-// stage stays under 48 KB).
+// contiguity, and 1 <= taps <= 16 (the shared-memory stage stays under
+// 48 KB).
 extern "C" int extirpolate_grid_factored_f32(
     const int* ilo, const float* u_re, const float* u_im, const float* lag,
     int n, int taps, int nfft, float* out_re, float* out_im, void* stream) {
   return launch_spread<true>(ilo, u_re, u_im, lag, n, taps, nfft, out_re, out_im, nullptr,
                              stream);
-}
-
-// vals_re, vals_im: [N, 4] f32 planes of the complex per-tap values. With
-// out_c non-null the grid goes there as interleaved complex64 [nfft] and
-// out_re, out_im are not touched; otherwise into the two planes.
-extern "C" int extirpolate_grid_f32(const int* ilo, const float* vals_re,
-                                    const float* vals_im, int n, int nfft,
-                                    float* out_re, float* out_im, float* out_c,
-                                    void* stream) {
-  return launch_spread<false>(ilo, vals_re, vals_im, nullptr, n, 4, nfft, out_re, out_im,
-                              out_c, stream);
 }

@@ -4,10 +4,11 @@ Every ``csrc/*.cu`` has a plain C interface. ``build()`` compiles each
 source with nvcc for Hopper (``sm_90a``), one nvcc process per source, all
 started together, and links the objects into one shared library under
 ``build/kernels/`` at the root of the checkout. The library is named by a
-hash over all the sources and the flags, so an edited or added source is
-never served by a stale library. ``load()`` binds every entry point in
-``ENTRY_POINTS`` with ctypes at first use, building the library if it is
-missing. No PyTorch header is included, which keeps the build to seconds.
+hash over all the sources, the headers they share (``csrc/*.cuh``) and the
+flags, so an edited or added file is never served by a stale library.
+``load()`` binds every entry point in ``ENTRY_POINTS`` with ctypes at
+first use, building the library if it is missing. No PyTorch header is
+included, which keeps the build to seconds.
 
 Each entry point launches on the stream it is given, without
 synchronising, and returns ``cudaGetLastError()``; its wrapper raises if
@@ -38,8 +39,8 @@ _I = ctypes.c_int
 ENTRY_POINTS = {
     # ilo, u_re, u_im, lag, n, taps, nfft, out_re, out_im, stream
     "extirpolate_grid_factored_f32": [_P] * 4 + [_I] * 3 + [_P] * 3,
-    # ilo, vals_re, vals_im, n, nfft, out_re, out_im, out_c, stream
-    "extirpolate_grid_f32": [_P] * 3 + [_I] * 2 + [_P] * 4,
+    # ilo, vals (complex64 [N, 4] as f32 pairs), n, nfft, out_re, out_im, out_c, stream
+    "extirpolate_grid_f32": [_P] * 2 + [_I] * 2 + [_P] * 4,
     # t, values, offsets, freqs, n, nv, p, n_phi, stride, out, stream
     "fold_onehot_f32": [_P] * 4 + [_I] * 5 + [_P] * 2,
 }
@@ -53,7 +54,7 @@ def _sources():
 
 def _lib_path():
     digest = hashlib.sha256(" ".join(_COMPILE + _LINK).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libperiodicity_kernels_{digest.hexdigest()[:16]}.so"
 

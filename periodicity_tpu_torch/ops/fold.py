@@ -23,11 +23,11 @@ import torch
 
 __all__ = ["fold_onehot", "fold_onehot_plain", "fold_bins_onehot", "histogram_rows"]
 
-# the kernel keeps 8 warp-private nv x nbins f32 histograms in at most
-# 227 KB (232448 bytes) of shared memory per block
-_WARPS = 8
+# a block of the kernel keeps two nv x nbins f32 histograms, one per
+# frequency in flight, in at most 227 KB (232448 bytes) of shared memory
+_HISTOGRAMS = 2
 _MAX_SMEM = 232448
-_MAX_CELLS = _MAX_SMEM // (_WARPS * 4)
+_MAX_CELLS = _MAX_SMEM // (_HISTOGRAMS * 4)
 # the plain version folds at most this many (period, row, sample) triples
 # per index_add_
 _PLAIN_TRIPLES = 1 << 24
@@ -113,7 +113,7 @@ def fold_onehot(t, values, freqs, n_phi, stride=1, offsets=None):
     if nv * nbins > _MAX_CELLS:
         raise ValueError(
             f"nv * n_phi * stride = {nv * nbins} cells do not fit the kernel's shared "
-            f"memory: {_WARPS} warp-private f32 histograms in {_MAX_SMEM} bytes allow "
+            f"memory: a block's {_HISTOGRAMS} f32 histograms in {_MAX_SMEM} bytes allow "
             f"at most {_MAX_CELLS}"
         )
     if offsets is not None:

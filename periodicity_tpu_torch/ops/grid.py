@@ -3,9 +3,9 @@
 Port of ``periodicity_tpu/ops/pallas_grid.py``, the first spreading
 kernel, which no estimator calls (the GLS path spreads factored weights,
 ``ops/grid2.py``). The TPU kernel (``extirpolate_grid``) becomes the
-second entry point of the hand-written Hopper kernel
-``csrc/extirpolate_grid.cu``; ``extirpolate_grid_plain`` is the same
-function in plain PyTorch (``index_add_`` into two planes).
+hand-written Hopper kernel ``csrc/extirpolate_grid_walk.cu``;
+``extirpolate_grid_plain`` is the same function in plain PyTorch
+(``index_add_`` into two planes).
 """
 
 import ctypes
@@ -41,7 +41,7 @@ def extirpolate_grid(ilo, vals, nfft, as_complex=True):
         finds each tile's samples by binary search, so unsorted or wrapped
         bases give silently wrong grids, as with the TPU kernel.
     vals: complex [N, 4]; the kernel spreads it in float32, as the TPU
-        kernel does.
+        kernel does, reading complex64 as it lies in memory.
     nfft: a multiple of 8.
 
     Returns complex64 [nfft], or float32 (re, im) with ``as_complex=False``,
@@ -66,8 +66,9 @@ def extirpolate_grid(ilo, vals, nfft, as_complex=True):
         raise ValueError(f"vals is on {vals.device}, ilo on {ilo.device}")
     if nfft < 8 or nfft > (1 << 30) or nfft % 8:
         raise ValueError(f"nfft must be a multiple of 8 in [8, 2^30], got {nfft}")
-    vre = vals.real.to(torch.float32).contiguous()
-    vim = vals.imag.to(torch.float32).contiguous()
+    vals = vals.to(torch.complex64).contiguous()
+    if vals.data_ptr() % 16:  # the kernel reads each sample's taps as two float4
+        vals = vals.clone()
 
     from ._kernels import load
 
@@ -81,8 +82,7 @@ def extirpolate_grid(ilo, vals, nfft, as_complex=True):
         ptrs = (grid[0].data_ptr(), grid[1].data_ptr(), None)
     with torch.cuda.device(ilo.device):
         stream = torch.cuda.current_stream(ilo.device).cuda_stream
-        err = fn(ilo.data_ptr(), vre.data_ptr(), vim.data_ptr(), n, nfft, *ptrs,
-                 ctypes.c_void_p(stream))
+        err = fn(ilo.data_ptr(), vals.data_ptr(), n, nfft, *ptrs, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"extirpolate_grid launch failed: cudaError {err}")
     extirpolate_grid.launches += 1

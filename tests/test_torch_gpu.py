@@ -134,8 +134,11 @@ def test_gls_direct_on_card_matches_cpu_and_oracle(cuda):
         (50, 2048, 0, 2044),
         (5000, 1 << 16, 1000, 1200),  # many samples in one tile
         (3000, 1 << 14, (1 << 14) - 300, (1 << 14) - 4),  # clustered at the end
-        (100_000, 1 << 23, 0, (1 << 22) - 4),
+        (100_000, 1 << 23, 0, (1 << 22) - 4),  # half the tiles empty
         (0, 1 << 12, 0, 1),
+        (0, 1 << 23, 0, 1),  # every tile empty
+        (5000, 1 << 20, (1 << 20) - 2048, (1 << 20) - 4),  # all samples in the last tile
+        (4000, 1 << 16, 2040, 2056),  # more than a ring of samples across a tile edge
     ],
 )
 def test_unfactored_kernel_matches_plain(cuda, n, nfft, lo, hi):
@@ -155,11 +158,27 @@ def test_unfactored_kernel_matches_plain(cuda, n, nfft, lo, hi):
     assert torch.equal(re, got.real) and torch.equal(im, got.imag)  # deterministic
 
 
+def test_unfactored_kernel_takes_unaligned_values(cuda):
+    """Values that start off a 16-byte boundary give the same grid."""
+    rng = np.random.default_rng(7)
+    n, nfft = 1000, 1 << 14
+    ilo = torch.from_numpy(np.sort(rng.integers(0, nfft - 4, n)).astype(np.int32)).to(cuda)
+    flat = torch.from_numpy(rng.standard_normal(4 * n + 1) + 1j * rng.standard_normal(4 * n + 1)
+                            ).to(torch.complex64).to(cuda)
+    vals = flat[1:].view(n, 4)
+    assert vals.data_ptr() % 16
+    got = extirpolate_grid(ilo, vals, nfft)
+    assert torch.equal(got, extirpolate_grid(ilo, vals.clone(), nfft))
+    ref = extirpolate_grid_plain(ilo, vals.to(torch.complex128), nfft)
+    torch.cuda.synchronize()
+    assert float((got.to(torch.complex128) - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
 def _fold_draw(n, nv, epoch, seed):
     rng = np.random.default_rng(seed)
     t = np.sort(rng.uniform(0, 200.0, n)) + epoch
     x = rng.standard_normal(n)
-    values = np.stack([np.ones(n), x, x * x][:nv]).astype(np.float32)
+    values = np.stack([np.ones(n), x, x * x, np.abs(x)][:nv]).astype(np.float32)
     return t, x, values
 
 
@@ -170,8 +189,15 @@ def _fold_draw(n, nv, epoch, seed):
         (2000, 300, 3, 9, 1, 0.0),  # AoV: counts, sums, squares
         (2000, 300, 1, 10, 5, 0.0),  # conditional entropy: offsets
         (1999, 333, 2, 64, 1, 2.45e6),  # ragged N and P, float64 times at a BJD epoch
-        (30_000, 100, 2, 256, 1, 0.0),  # too large to stage: read from global memory
+        (30_000, 100, 2, 256, 1, 0.0),  # above 2048 samples: read for every frequency
         (700, 50, 1, 7000, 1, 0.0),  # histograms above 48 KB of shared memory
+        (2000, 512, 2, 256, 1, 0.0),  # one chunk of the BLS scan
+        (2000, 1, 2, 256, 1, 0.0),  # fewer frequencies than SMs
+        (2000, 7, 3, 9, 1, 0.0),
+        (1, 50, 2, 16, 1, 0.0),  # one sample
+        (31, 50, 2, 16, 1, 0.0),
+        (2000, 64, 4, 256, 1, 0.0),  # more rows than kept in registers: read for every frequency
+        (700, 20, 1, 29056, 1, 0.0),  # the largest histogram the wrapper takes
     ],
 )
 def test_fold_kernel_matches_plain(cuda, n, p, nv, n_phi, stride, epoch):
@@ -205,7 +231,7 @@ def test_fold_kernel_rejects_what_it_does_not_take(cuda):
     tt, vt = torch.from_numpy(t).to(cuda), torch.from_numpy(values).to(cuda)
     freqs = torch.linspace(0.1, 1.0, 10, device=cuda)
     with pytest.raises(ValueError, match="shared"):
-        fold_onehot(tt, vt, freqs, 4000)
+        fold_onehot(tt, vt, freqs, 15000)  # 2 rows x 15000 bins > 29056 cells
     with pytest.raises(ValueError):
         fold_onehot(tt, vt.cpu(), freqs, 16)
     with pytest.raises(ValueError):
