@@ -6,20 +6,29 @@ kernels, and checks every phase:
 1. a CUDA device is present; the card's name and power limit;
 2. the kernel library builds from ``periodicity_tpu_torch/csrc`` (one
    nvcc per source, all started together);
-3. the spreading kernel agrees with its plain PyTorch version at the GLS
-   main-path shapes (2^23 and 2^22 cells), and on a clustered draw;
+3. the spreading kernel, through its factored entry point, agrees with its
+   plain PyTorch version at the GLS main-path shapes (2^23 and 2^22
+   cells), on a clustered draw and at 16 taps, in both output layouts
+   (complex64 and two planes, bit-equal to each other and between calls);
 4. ``GLS()(TSeries(t, y))`` on the card finds the injected 7.7-day period,
    through exactly two spreading launches;
 5. float32 ``gls_power`` with the kernel agrees with float64 on the card
-   at the benchmark shape; on a small input, float32 agrees with float64
-   and the fast path with the exact direct method;
-6. GLS times: kernel vs plain, chained periodograms, peak device memory;
+   at the benchmark shape, and no grid-sized ``torch.complex`` runs on its
+   path (the kernel writes the complex grid the IFFT reads); on a small
+   input, float32 agrees with float64 and the fast path with the exact
+   direct method;
+6. GLS times: the spreading kernel vs plain and vs one ``index_add_``
+   call, by events and by the profiler's device time, and on the clustered
+   draw; chained periodograms; the device time of one periodogram by
+   kernel family with the device's idle share; the peak device memory of
+   one periodogram;
 7. the phase-fold kernel agrees with its plain version at the BLS
    benchmark shape (config 11: N = 2000, 1e5 trial periods, 2 rows of 256
    bins), the AoV and conditional-entropy shapes, each in one launch and at
    the chunk of periods the scans launch, and an edge draw (counts
-   bit-equal); the unfactored spreading kernel agrees with its plain
-   version at N = 1e5, 2^23 cells and on a clustered draw;
+   bit-equal); the spreading kernel, through its unfactored entry point,
+   agrees with its plain version at N = 1e5, 2^23 cells and on a clustered
+   draw;
 8. ``BLS()(TSeries(t, y))`` at config 11 on the card goes through the fold
    kernel (one launch per chunk of periods), finds the 7.7-day transit
    period and agrees with the float64 scatter scan;
@@ -53,7 +62,7 @@ NF = 1_000_000
 BASELINE = 1000.0
 PERIOD = 7.7
 TAPS = 4
-TILE = 2048  # cells per block of the CUDA kernel
+TILE = 2048  # cells per step of a block of the spreading kernel
 
 
 def check(ok, what):
@@ -70,21 +79,23 @@ def bench_draw():
     return t, y, err
 
 
-def grid_draw(nfft, occupied, seed, cluster_tile=None):
+def grid_draw(nfft, occupied, seed, cluster_tile=None, taps=TAPS):
     """Sorted bases over the first ``occupied`` share of the grid, unit-ish
-    complex weights and 4-tap Lagrange weights, as the pipelines make
-    them. With ``cluster_tile``, half the samples fall in that tile."""
+    complex weights and ``taps``-point Lagrange weights, as the pipelines
+    make them. With ``cluster_tile``, half the samples fall in that tile."""
     rng = np.random.default_rng(seed)
-    hi = int(occupied * nfft) - TAPS
+    hi = int(occupied * nfft) - taps
     ilo = rng.integers(0, hi, N)
     if cluster_tile is not None:
-        ilo[: N // 2] = cluster_tile * TILE + rng.integers(0, TILE - TAPS, N // 2)
+        ilo[: N // 2] = cluster_tile * TILE + rng.integers(0, TILE - taps, N // 2)
     ilo = np.sort(ilo).astype(np.int32)
     phase = rng.uniform(0, 2 * np.pi, N)
     w = rng.uniform(0.5, 1.5, N) / N
-    d = rng.uniform(1.0, 2.0, N)[:, None] - np.arange(TAPS)[None, :]
-    denom = np.array([(-1.0) ** (TAPS - 1 - j) * math.factorial(j) * math.factorial(TAPS - 1 - j)
-                      for j in range(TAPS)])
+    # the sample's offset from its base, in [taps/2 - 1, taps/2) as the
+    # pipelines place it
+    d = rng.uniform(taps // 2 - 1, taps // 2, N)[:, None] - np.arange(taps)[None, :]
+    denom = np.array([(-1.0) ** (taps - 1 - j) * math.factorial(j) * math.factorial(taps - 1 - j)
+                      for j in range(taps)])
     lag = np.prod(d, axis=1)[:, None] / (denom[None, :] * d)
     return (ilo, (w * np.cos(phase)).astype(np.float32), (w * np.sin(phase)).astype(np.float32),
             lag.astype(np.float32))
@@ -135,22 +146,31 @@ def host_us(fn, reps=200):
 
 
 def device_us(fn, name, reps):
-    """(device time in microseconds per call of ``fn``, count) of the
-    kernels whose name holds ``name`` (every kernel for ``""``), over
-    ``reps`` calls in one profiler window."""
+    """Device time in microseconds per call of ``fn`` of the kernels whose
+    name holds ``name`` (every kernel for ``""``), over ``reps`` calls in
+    one profiler window. A named kernel is launched once a call: a window
+    whose count of it is not ``reps`` is taken again, up to three windows,
+    since the profiler has been seen to miss some of a window's launches
+    (22 of 50 once); the last window must have them all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name]
-    return sum(times) / reps, len(times)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+        if not name or len(times) == reps:
+            break
+        print(f"profiler window saw {len(times)} of {reps} {name} launches; taken again")
+    check(not name or len(times) == reps,
+          f"the profiler saw {reps} {name} launches, got {len(times)}")
+    return sum(times) / reps
 
 
 def event_ms(fn, reps):
@@ -165,6 +185,96 @@ def event_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_family(name):
+    """The family a device kernel's name belongs to, for the breakdowns."""
+    low = name.lower()
+    if "spread" in low:  # spread_walk_kernel; spread_kernel before it
+        return "spreading"
+    if "fft" in low:
+        return "cuFFT"
+    if "reduce" in low:
+        return "reductions"
+    if any(k in low for k in ("memcpy", "memset", "copy", "fill")):
+        return "copies and fills"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
+def gls_breakdown(chained, card, k=3):
+    """Device time of one bench-shape periodogram by kernel family, and the
+    device's idle share, from one profiler window over ``k`` chained
+    periodograms through the kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    chained("kernel", 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chained("kernel", k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    spread_launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:  # kernels, copies and fills on the card
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            spread_launches += kernel_family(e.name) == "spreading"
+    busy = sum(by_name.values())
+    check(busy > 0, "the profiler saw device work")
+    check(spread_launches == 2 * k, f"{2 * k} spreading launches in the window, got "
+          f"{spread_launches}")
+    families = {}
+    for name, us in by_name.items():
+        families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + us
+    print(f"profiler, {k} chained bench-shape periodograms (kernel gridder), per periodogram: "
+          f"wall {wall * 1e3 / k:.3f} ms, device busy {busy / 1e3 / k:.4f} ms, idle "
+          f"{1 - busy / 1e6 / wall:.1%}  ({card})")
+    for fam, us in sorted(families.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam:18s} {us / 1e3 / k:8.4f} ms per periodogram ({us / busy:.1%})")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  device {us / 1e3 / k:8.4f} ms  {name[:90]}")
+
+
+def gls_chain(gls_power, tc, yc, ec, dev):
+    """``chained(gridder, k)``: k bench-shape periodograms, each feeding
+    the next (bench.py's loop); returns a 0-d sum that depends on all."""
+    import torch
+
+    df = float(np.float32(0.5 / BASELINE))
+    fmin = float(np.float32(df / 2))
+
+    def chained(gridder, k=20):
+        yk = yc
+        acc = torch.zeros((), dtype=torch.float32, device=dev)
+        for _ in range(k):
+            p = gls_power(tc, yk, ec, df, fmin, NF, pair_q=1, gridder=gridder)
+            yk = yk + p[:N] * 1e-9
+            acc = acc + p[0]
+        return acc
+
+    return chained
+
+
+def gls_peak(chained, card):
+    """Peak device memory of one bench-shape periodogram through the
+    kernel, above what is already held; in bytes."""
+    import torch
+
+    chained("kernel", 1)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    chained("kernel", 1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"peak device memory of one bench-shape periodogram, above the {held / 2**20:.1f} MiB "
+          f"already held: {peak / 2**20:.1f} MiB  ({card})")
+    return peak
 
 
 def main():
@@ -182,6 +292,7 @@ def main():
     )
     from periodicity_tpu_torch.ops.trig_sum import grid_size
     from periodicity_tpu_torch.spectral import GLS, default_frequency_grid, gls_power
+    from torch.profiler import ProfilerActivity, profile
 
     # full float32 matrix products for the direct method (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -200,18 +311,19 @@ def main():
     info = _kernels.build()
     print(f"build: {info['seconds']:.2f} s -> {info['path']}")
     for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
     _kernels.load()
 
     def cuda(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    # phase 3: kernel vs plain at the main-path shapes
+    # phase 3: kernel vs plain at the main-path shapes, in both layouts
     cases = {
         "pair 2^23": grid_draw(1 << 23, 0.5, seed=1),
         "2f 2^22": grid_draw(1 << 22, 1.0, seed=2),
         "clustered 2^23": grid_draw(1 << 23, 0.5, seed=3, cluster_tile=1000),
+        "16 taps 2^23": grid_draw(1 << 23, 0.5, seed=4, taps=16),
     }
     args = {}
     max_abs_err = 0.0
@@ -219,17 +331,24 @@ def main():
         nfft = 1 << 23 if "2^23" in label else 1 << 22
         a = (cuda(ilo), cuda(ure), cuda(uim), cuda(lag), nfft)
         args[label] = a
+        kc = extirpolate_grid_factored(*a, as_complex=True)
         kre, kim = extirpolate_grid_factored(*a)
-        pre, pim = extirpolate_grid_factored_plain(*a)
-        a64 = (a[0], a[1].double(), a[2].double(), a[3].double(), nfft)
-        dre, dim_ = extirpolate_grid_factored_plain(*a64)
+        again = extirpolate_grid_factored(*a, as_complex=True)
+        pc = extirpolate_grid_factored_plain(*a, as_complex=True)
+        dc = extirpolate_grid_factored_plain(a[0], a[1].double(), a[2].double(), a[3].double(),
+                                             nfft, as_complex=True)
         torch.cuda.synchronize()
-        scale = float(torch.maximum(dre.abs().max(), dim_.abs().max()))
-        err_plain = float(torch.maximum((kre - pre).abs().max(), (kim - pim).abs().max()))
-        err_f64 = float(torch.maximum((kre.double() - dre).abs().max(),
-                                      (kim.double() - dim_).abs().max()))
+        check(kc.dtype == torch.complex64 and kc.shape == (nfft,), f"{label}: complex64 [nfft]")
+        check(torch.equal(kc.real, kre) and torch.equal(kc.imag, kim),
+              f"{label}: the complex grid and the planes bit-equal")
+        check(torch.equal(kc, again), f"{label}: two calls bit-equal")
+        k, d = torch.view_as_real(kc), torch.view_as_real(dc)
+        scale = float(d.abs().max())
+        err_plain = float((k - torch.view_as_real(pc)).abs().max())
+        err_f64 = float((k.double() - d).abs().max())
         print(f"kernel vs plain [{label}]: max|d| {err_plain:.3e} (f32 plain), "
-              f"{err_f64:.3e} (f64 plain), max|grid| {scale:.3e}")
+              f"{err_f64:.3e} (f64 plain), max|grid| {scale:.3e}; both layouts and two calls "
+              f"bit-equal")
         check(err_plain <= 1e-5 * scale, f"{label}: kernel vs f32 plain {err_plain} > 1e-5*{scale}")
         check(err_f64 <= 1e-6 * scale, f"{label}: kernel vs f64 plain {err_f64} > 1e-6*{scale}")
         max_abs_err = max(max_abs_err, err_plain)
@@ -269,7 +388,15 @@ def main():
     df = float(np.float32(0.5 / BASELINE))
     fmin = float(np.float32(df / 2))
     tc, yc, ec = cuda(t), cuda(y), cuda(err)
-    p32 = gls_power(tc, yc, ec, df, fmin, NF, pair_q=1, gridder="kernel")
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        p32 = gls_power(tc, yc, ec, df, fmin, NF, pair_q=1, gridder="kernel")
+        torch.cuda.synchronize()
+    grid_sizes = (grid_size(NF), grid_size(NF) // 2)
+    joins = [e.input_shapes for e in prof.events() if e.name == "aten::complex"]
+    grid_joins = [sh for sh in joins if sh and sh[0] and sh[0][0] in grid_sizes]
+    print(f"gls_power bench shape, kernel path: {len(joins)} torch.complex calls, "
+          f"{len(grid_joins)} of them on a grid of {grid_sizes} cells")
+    check(joins and not grid_joins, f"no torch.complex of grid planes: {grid_joins}")
     p64 = gls_power(tc.double(), yc.double(), ec.double(), df, fmin, NF, pair_q=1,
                     gridder="scatter")
     dp = (p32.double() - p64).abs() / p64.max()
@@ -305,32 +432,41 @@ def main():
     check(d_prec <= 1e-4, f"small f32 kernel vs f64 scatter {d_prec} > 1e-4 of peak")
     check(d_alg <= 1e-8, f"small f64 oracle vs direct {d_alg} > 1e-8 of peak")
 
-    # phase 6: times (CUDA events, warmed, alternating plain/kernel)
+    # phase 6: times of the kernel, its plain version and the yardstick
+    # (CUDA events, warmed, in turns; and the profiler's device time per
+    # call), in the layout the pipelines ask for: the complex64 grid. The
+    # yardstick is a zero-fill and one index_add_ of the products u * lag
+    # (made outside the timed call) on the flat indices. The bound: ilo,
+    # u_re, u_im and lag read once, the complex64 grid written once.
     times = {}
-    for label in ("pair 2^23", "2f 2^22"):
-        a = args[label]
-        for fn in (extirpolate_grid_factored, extirpolate_grid_factored_plain):
-            fn(*a)
-        runs = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = extirpolate_grid_factored if which == "kernel" else extirpolate_grid_factored_plain
-            runs[which].append(event_ms(lambda: fn(*a), 50))
-        times[label] = {k: statistics.mean(v) for k, v in runs.items()}
-        print(f"spreading [{label}, N={N}]: kernel {times[label]['kernel']:.4f} ms, "
-              f"plain index_add_ {times[label]['plain']:.4f} ms  ({card})")
-    clustered_ms = event_ms(lambda: extirpolate_grid_factored(*args["clustered 2^23"]), 5)
-    print(f"spreading [clustered 2^23, half the samples in one 2048-cell tile]: kernel "
-          f"{clustered_ms:.4f} ms  ({card})")
+    for label in ("pair 2^23", "2f 2^22", "clustered 2^23"):
+        ilo, ure, uim, lag, nfft = a = args[label]
+        taps = lag.shape[1]
+        flat = (ilo.long()[:, None] + torch.arange(taps, device=dev)).reshape(-1)
+        prods = torch.stack([ure[:, None] * lag, uim[:, None] * lag], dim=-1).reshape(-1, 2)
+        fns = {
+            "kernel": lambda: extirpolate_grid_factored(*a, as_complex=True),
+            "plain": lambda: extirpolate_grid_factored_plain(*a, as_complex=True),
+            "library": lambda: torch.zeros(nfft, 2, device=dev).index_add_(0, flat, prods),
+        }
+        for fn in fns.values():
+            fn()
+        runs = {k: [] for k in fns}
+        for which in ("plain", "kernel", "library", "library", "kernel", "plain"):
+            runs[which].append(event_ms(fns[which], 50))
+        got = {k: statistics.mean(v) for k, v in runs.items()}
+        got["device"] = device_us(fns["kernel"], "spread_walk", 20) / 1e3
+        got["library_device"] = device_us(fns["library"], "", 20) / 1e3
+        n = ilo.shape[0]
+        got["bound"] = bound(n * (4 + 4 + 4 + 4 * taps) + nfft * 8, n * taps * 2 * 2)
+        times[label] = got
+        print(f"spreading [{label}, N={n}]: by events back to back, kernel {got['kernel']:.4f} "
+              f"ms, one index_add_ {got['library']:.4f} ms, plain {got['plain']:.4f} ms; device "
+              f"time per call (profiler), kernel {got['device']:.4f} ms, one index_add_ "
+              f"{got['library_device']:.4f} ms (zero-fill and index_add_); bound "
+              f"{got['bound'][0]:.4f} ms ({got['bound'][1]})  ({card})")
 
-    def chained(gridder, k=20):
-        yk = yc
-        acc = torch.zeros((), dtype=torch.float32, device=dev)
-        for _ in range(k):
-            p = gls_power(tc, yk, ec, df, fmin, NF, pair_q=1, gridder=gridder)
-            yk = yk + p[:N] * 1e-9
-            acc = acc + p[0]
-        return acc
-
+    chained = gls_chain(gls_power, tc, yc, ec, dev)
     rates = {}
     for gridder in ("kernel", "scatter"):
         chained(gridder, 2)
@@ -339,29 +475,34 @@ def main():
     for gridder, r in rates.items():
         print(f"chained bench-shape periodograms (K=20, gridder={gridder}): "
               f"{statistics.mean(r):.4e} trial-freqs/s, runs {[f'{x:.4e}' for x in r]}  ({card})")
-    torch.cuda.reset_peak_memory_stats()
-    chained("kernel", 1)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    print(f"peak device memory, one bench-shape periodogram: {peak / 2**20:.1f} MiB  ({card})")
+    gls_breakdown(chained, card)
+    peak = gls_peak(chained, card)
 
-    # the spreading kernel's bound at the timed shape (pair 2^23): ilo,
-    # u_re, u_im and lag read once, both planes written once
-    b1_bound = bound(N * (4 + 4 + 4 + 4 * TAPS) + 2 * (1 << 23) * 4, N * TAPS * 2 * 2)
-
-    kernels = [{
+    # the pair pipeline's launch unprefixed; the 2f pipeline's launch and
+    # the clustered draw under prefixes. device_ms is the profiler's
+    # device time per call, for the kernel and the index_add_ call alike.
+    b1_record = {
         "name": "extirpolate_grid_factored",
         "route": "cuda",
-        "source": "periodicity_tpu_torch/csrc/extirpolate_grid.cu",
+        "source": "periodicity_tpu_torch/csrc/extirpolate_grid_walk.cu",
         "replaces": "periodicity_tpu/ops/pallas_grid2.py:194",
         "launches": launches,
         "max_abs_err": max_abs_err,
-        "ms": times["pair 2^23"]["kernel"],
-        "plain_ms": times["pair 2^23"]["plain"],
-        "bound_ms": b1_bound[0],
-        "bound_by": b1_bound[1],
-        "library_ms": None,
-    }]
+    }
+    for prefix, label in (("", "pair 2^23"), ("2f_", "2f 2^22"),
+                          ("clustered_", "clustered 2^23")):
+        got = times[label]
+        b1_record.update({
+            f"{prefix}ms": got["kernel"],
+            f"{prefix}plain_ms": got["plain"],
+            f"{prefix}bound_ms": got["bound"][0],
+            f"{prefix}bound_by": got["bound"][1],
+            f"{prefix}library_ms": got["library"],
+            f"{prefix}device_ms": got["device"],
+            f"{prefix}library_device_ms": got["library_device"],
+        })
+    b1_record["peak_mib_per_periodogram"] = peak / 2**20
+    kernels = [b1_record]
     kernels += phase_slice(dev, card, cuda)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -556,8 +697,7 @@ def phase_slice(dev, card, cuda):
     a11 = fold_args["config 11 (N=2000, P=1e5, 2x256)"]
     chunk_args = fold_args["config 11 chunk (512 periods)"]
     chunk_times = timed(fold_onehot, fold_onehot_plain, chunk_args, 200, 50)
-    chunk_dev_us, chunk_dev_n = device_us(lambda: fold_onehot(*chunk_args), "fold_kernel", 50)
-    check(chunk_dev_n == 50, f"the profiler saw 50 fold launches, got {chunk_dev_n}")
+    chunk_dev_us = device_us(lambda: fold_onehot(*chunk_args), "fold_kernel", 50)
     chunk_host = [host_us(lambda: fold_onehot(*chunk_args)) for _ in range(2)]
     print(f"fold [config 11, one chunk of {BLS_BATCH} periods]: kernel "
           f"{chunk_times['kernel'] * 1e3:.2f} us per launch by events back to back, "
@@ -577,10 +717,8 @@ def phase_slice(dev, card, cuda):
     # and device time per call from the profiler: the wrapper's host time
     # per call comes near the kernel's device time, so back-to-back events
     # through the wrapper can measure the host
-    b3_dev_us, b3_dev_n = device_us(lambda: extirpolate_grid(*grid_args["N=1e5 2^23"]),
-                                    "spread_walk", 20)
-    check(b3_dev_n == 20, f"the profiler saw 20 unfactored spreading launches, got {b3_dev_n}")
-    library_dev_us, _ = device_us(library_grid, "", 20)
+    b3_dev_us = device_us(lambda: extirpolate_grid(*grid_args["N=1e5 2^23"]), "spread_walk", 20)
+    library_dev_us = device_us(library_grid, "", 20)
     print(f"unfactored spreading [N=1e5, 2^23]: by events back to back, kernel "
           f"{grid_times['kernel']:.4f} ms, one index_add_ {library_events:.4f} ms, plain "
           f"{grid_times['plain']:.4f} ms; device time per call (profiler), kernel "
@@ -589,9 +727,15 @@ def phase_slice(dev, card, cuda):
 
     # a heavily clustered draw (half the samples in one 2048-cell tile),
     # whose samples overflow the kernel's ring of staged samples
-    clustered_ms = event_ms(lambda: extirpolate_grid(*grid_args["clustered 2^23"]), 5)
+    def b3_clustered():
+        return extirpolate_grid(*grid_args["clustered 2^23"])
+
+    b3_clustered()
+    clustered_ms = event_ms(b3_clustered, 20)
+    clustered_dev_us = device_us(b3_clustered, "spread_walk", 5)
     print(f"unfactored spreading [clustered 2^23, half the samples in one 2048-cell tile]: "
-          f"kernel {clustered_ms:.4f} ms  ({card})")
+          f"kernel {clustered_ms:.4f} ms by events, {clustered_dev_us / 1e3:.4f} ms of device "
+          f"time  ({card})")
 
     tc, yc, wc = cuda(t), cuda(y), cuda(w)
     pc = cuda(bls_periods.astype(np.float32))
@@ -694,6 +838,7 @@ def phase_slice(dev, card, cuda):
             # for the one index_add_ call alike
             "device_ms": b3_dev_us / 1e3,
             "library_device_ms": library_dev_us / 1e3,
+            "clustered_ms": clustered_ms,
         },
     ]
 

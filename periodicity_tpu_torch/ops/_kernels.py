@@ -37,8 +37,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C name -> argtypes (pointers and the stream as void*, sizes as int)
 ENTRY_POINTS = {
-    # ilo, u_re, u_im, lag, n, taps, nfft, out_re, out_im, stream
-    "extirpolate_grid_factored_f32": [_P] * 4 + [_I] * 3 + [_P] * 3,
+    # ilo, u_re, u_im, lag, n, taps, nfft, out_re, out_im, out_c, stream
+    "extirpolate_grid_factored_f32": [_P] * 4 + [_I] * 3 + [_P] * 4,
     # ilo, vals (complex64 [N, 4] as f32 pairs), n, nfft, out_re, out_im, out_c, stream
     "extirpolate_grid_f32": [_P] * 2 + [_I] * 2 + [_P] * 4,
     # t, values, offsets, freqs, n, nv, p, n_phi, stride, out, stream

@@ -3,7 +3,8 @@
 Port of ``periodicity_tpu/ops/pallas_grid.py``, the first spreading
 kernel, which no estimator calls (the GLS path spreads factored weights,
 ``ops/grid2.py``). The TPU kernel (``extirpolate_grid``) becomes the
-hand-written Hopper kernel ``csrc/extirpolate_grid_walk.cu``;
+hand-written Hopper kernel ``csrc/extirpolate_grid_walk.cu``, which the
+factored spreading shares;
 ``extirpolate_grid_plain`` is the same function in plain PyTorch
 (``index_add_`` into two planes).
 """

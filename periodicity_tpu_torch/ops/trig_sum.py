@@ -131,19 +131,20 @@ def _extirpolate_weights(trel, df, nfft, dtype, taps=4):
     return inds, lagrange
 
 
-def _grid_planes(u, inds, lag, nfft, gridder):
-    """Complex extirpolation grid as (re, im) planes. The kernel runs for
-    float32 grids of at least 512 cells; float64 pipelines keep the plain
-    spreading, so ``gridder="kernel"`` never demotes a float64 computation.
-    ``inds`` never wraps (the bases are clamped to nfft - taps), so both
-    gridders spread from the base column alone."""
+def _grid(u, inds, lag, nfft, gridder):
+    """Complex extirpolation grid [nfft], as the IFFT reads it. The kernel
+    runs for float32 grids of at least 512 cells and writes the complex64
+    grid itself; float64 pipelines keep the plain spreading, so
+    ``gridder="kernel"`` never demotes a float64 computation. ``inds``
+    never wraps (the bases are clamped to nfft - taps), so both gridders
+    spread from the base column alone."""
     ilo = inds[:, 0]
     if gridder == "kernel" and nfft >= 512 and u.real.dtype == torch.float32:
         return extirpolate_grid_factored(
             ilo.to(torch.int32).contiguous(), u.real.contiguous(),
-            u.imag.contiguous(), lag.contiguous(), nfft,
+            u.imag.contiguous(), lag.contiguous(), nfft, as_complex=True,
         )
-    return extirpolate_grid_factored_plain(ilo, u.real, u.imag, lag, nfft)
+    return extirpolate_grid_factored_plain(ilo, u.real, u.imag, lag, nfft, as_complex=True)
 
 
 def trig_sum_pair(t, w1, w2, df, nf, fmin, nfft=None, n=5, q=1,
@@ -178,8 +179,7 @@ def trig_sum_pair(t, w1, w2, df, nf, fmin, nfft=None, n=5, q=1,
     rot = _phase_factor(fmin, trel, dtype, cdtype)
     u = torch.complex(w1.to(dtype), w2.to(dtype)) * rot
     inds, lag = _extirpolate_weights(trel, df, nfft, dtype, taps=taps)
-    grid_re, grid_im = _grid_planes(u, inds, lag, nfft, gridder)
-    G = nfft * torch.fft.ifft(torch.complex(grid_re, grid_im))
+    G = nfft * torch.fft.ifft(_grid(u, inds, lag, nfft, gridder))
     # indices nfft - k - q for k in [0, nf): a contiguous descending range
     back = torch.flip(torch.conj(G[nfft - q - nf + 1: nfft - q + 1]), dims=(0,))
     G1 = 0.5 * (G[:nf] + back)
@@ -215,8 +215,7 @@ def trig_sum(t, w, df, nf, fmin, nfft=None, n=5, gridder="scatter", taps=4):
     trel = t - tmin
     wc = w.to(cdtype) * _phase_factor(fmin, trel, dtype, cdtype)
     inds, lagrange = _extirpolate_weights(trel, df, nfft, dtype, taps=taps)
-    grid_re, grid_im = _grid_planes(wc, inds, lagrange, nfft, gridder)
-    fftgrid = torch.fft.ifft(torch.complex(grid_re, grid_im))[:nf]
+    fftgrid = torch.fft.ifft(_grid(wc, inds, lagrange, nfft, gridder))[:nf]
     fftgrid = fftgrid * _grid_rotation(tmin, df, fmin, nf, dtype, cdtype)
     C = nfft * fftgrid.real
     S = nfft * fftgrid.imag

@@ -1,5 +1,6 @@
-"""The CUDA kernels (spreading, unfactored spreading, phase fold) against
-their plain versions, and the GLS and BLS paths, on the card.
+"""The CUDA kernels (the spreading kernel through both of its entry points,
+the phase fold) against their plain versions, and the GLS and BLS paths,
+on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the device and
 skips where there is none. Run on a GPU machine without the repo's
@@ -48,6 +49,27 @@ def _on(device, arrays):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
+def _check_factored(ilo, ure, uim, lag, nfft):
+    """The kernel's complex grid and planes against the f64 plain version
+    (1e-6 of scale), bit-equal to each other and to a second call; returns
+    the complex grid."""
+    before = extirpolate_grid_factored.launches
+    got = extirpolate_grid_factored(ilo, ure, uim, lag, nfft, as_complex=True)
+    kre, kim = extirpolate_grid_factored(ilo, ure, uim, lag, nfft)
+    assert extirpolate_grid_factored.launches == before + 2
+    dre, dim = extirpolate_grid_factored_plain(ilo, ure.double(), uim.double(), lag.double(), nfft)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(dre.abs().max()), float(dim.abs().max()))
+    assert got.dtype == torch.complex64 and got.shape == (nfft,)
+    assert kre.dtype == torch.float32 and kre.shape == (nfft,)
+    assert float((kre.double() - dre).abs().max()) <= 1e-6 * scale
+    assert float((kim.double() - dim).abs().max()) <= 1e-6 * scale
+    # both layouts hold the same sums, and the same inputs give the same bits
+    assert torch.equal(got.real, kre) and torch.equal(got.imag, kim)
+    assert torch.equal(got, extirpolate_grid_factored(ilo, ure, uim, lag, nfft, as_complex=True))
+    return got
+
+
 @pytest.mark.parametrize(
     "n,nfft,taps,cluster",
     [
@@ -55,25 +77,67 @@ def _on(device, arrays):
         (3000, 1 << 16, 4, None),
         (3000, 1 << 9, 4, None),  # grid smaller than one block's tile
         (100_000, 1 << 22, 4, None),
-        (20_000, 1 << 16, 4, 4000),  # many chunks of samples in one tile
+        (20_000, 1 << 16, 4, 4000),  # many rings of samples in one tile
         (5000, 1 << 14, 8, None),
         (0, 1 << 12, 4, None),
     ],
 )
 def test_kernel_matches_plain(cuda, n, nfft, taps, cluster):
-    ilo, ure, uim, lag = _on(cuda, _draw(n, nfft, seed=n + nfft, taps=taps, cluster=cluster))
-    before = extirpolate_grid_factored.launches
-    kre, kim = extirpolate_grid_factored(ilo, ure, uim, lag, nfft)
-    assert extirpolate_grid_factored.launches == before + 1
-    dre, dim = extirpolate_grid_factored_plain(ilo, ure.double(), uim.double(), lag.double(), nfft)
-    torch.cuda.synchronize()
-    scale = max(1.0, float(dre.abs().max()), float(dim.abs().max()))
-    assert kre.dtype == torch.float32 and kre.shape == (nfft,)
-    assert float((kre.double() - dre).abs().max()) <= 1e-6 * scale
-    assert float((kim.double() - dim).abs().max()) <= 1e-6 * scale
-    # deterministic: the same inputs give the same bits
-    kre2, kim2 = extirpolate_grid_factored(ilo, ure, uim, lag, nfft)
-    assert torch.equal(kre, kre2) and torch.equal(kim, kim2)
+    _check_factored(*_on(cuda, _draw(n, nfft, seed=n + nfft, taps=taps, cluster=cluster)), nfft)
+
+
+@pytest.mark.parametrize(
+    "n,nfft,taps,lo,hi",
+    [
+        (0, 1 << 23, 4, 0, 1),  # every tile empty
+        (5000, 1 << 20, 4, (1 << 20) - 2048, (1 << 20) - 4),  # all samples in the last tile
+        (4000, 1 << 16, 4, 2040, 2056),  # a dense tile across a tile edge
+        (5000, 1 << 16, 4, 1000, 1200),  # a dense tile of ~10 rings of samples
+        (50_000, 1 << 23, 16, 0, (1 << 22) - 16),  # 16 taps, half the tiles empty
+        (1000, 1 << 16, 16, 1000, 1100),  # 16 taps, a dense tile (ring of 128)
+        (3000, 1 << 14, 1, 0, (1 << 14) - 1),  # one tap
+        (3000, 1 << 14, 3, 5000, 5300),  # three taps, a dense tile
+    ],
+)
+def test_kernel_edges_match_plain(cuda, n, nfft, taps, lo, hi):
+    rng = np.random.default_rng(n + nfft + taps)
+    ilo = np.sort(rng.integers(lo, hi, n)).astype(np.int32)
+    _check_factored(*_on(cuda, (ilo, rng.standard_normal(n).astype(np.float32),
+                                rng.standard_normal(n).astype(np.float32),
+                                rng.standard_normal((n, taps)).astype(np.float32))), nfft)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, (1 << 16) - 4), (1000, 1200)])
+def test_factored_kernel_is_the_unfactored_one_on_the_products(cuda, lo, hi):
+    """One kernel serves both entry points: at 4 taps the factored grid is
+    bit for bit the unfactored grid of the rounded products u * lag, in
+    sparse and dense tiles alike."""
+    rng = np.random.default_rng(3)
+    n, nfft = 5000, 1 << 16
+    ilo, ure, uim, lag = _on(cuda, (np.sort(rng.integers(lo, hi, n)).astype(np.int32),
+                                    rng.standard_normal(n).astype(np.float32),
+                                    rng.standard_normal(n).astype(np.float32),
+                                    rng.standard_normal((n, 4)).astype(np.float32)))
+    vals = torch.complex(ure[:, None] * lag, uim[:, None] * lag)
+    got = extirpolate_grid_factored(ilo, ure, uim, lag, nfft, as_complex=True)
+    assert torch.equal(got, extirpolate_grid(ilo, vals, nfft))
+
+
+@pytest.mark.parametrize("taps", [4, 16])
+def test_kernel_takes_unaligned_lag(cuda, taps):
+    """A lag that starts off a 16-byte (and 8-byte) boundary gives the same
+    grid."""
+    rng = np.random.default_rng(8)
+    n, nfft = 2000, 1 << 14
+    ilo, ure, uim = _on(cuda, (np.sort(rng.integers(0, nfft - taps, n)).astype(np.int32),
+                               rng.standard_normal(n).astype(np.float32),
+                               rng.standard_normal(n).astype(np.float32)))
+    flat = torch.from_numpy(rng.standard_normal(n * taps + 1).astype(np.float32)).to(cuda)
+    lag = flat[1:].view(n, taps)
+    assert lag.data_ptr() % 8
+    got = _check_factored(ilo, ure, uim, lag, nfft)
+    assert torch.equal(got, extirpolate_grid_factored(ilo, ure, uim, lag.clone(), nfft,
+                                                      as_complex=True))
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

@@ -55,6 +55,26 @@ def test_plain_grid_matches_jax_kernel_and_f64(n, nfft):
     np.testing.assert_allclose(got, ref64, rtol=0, atol=1e-6 * scale)
 
 
+@pytest.mark.parametrize("n,nfft", [(200, 1 << 13), (3000, 1 << 16)])
+def test_plain_complex_grid_matches_jax_kernel(n, nfft):
+    """``as_complex=True`` gives the complex64 grid the IFFT reads: the
+    complex of the planes, held against the complex of JAX's Pallas output
+    at the same tolerance as the planes."""
+    ilo, u, lag = _draw(n, nfft, seed=2)
+    before = extirpolate_grid_factored.launches
+    args = (torch.from_numpy(ilo), torch.from_numpy(u.real.copy()),
+            torch.from_numpy(u.imag.copy()), torch.from_numpy(lag), nfft)
+    got = extirpolate_grid_factored(*args, as_complex=True)
+    assert extirpolate_grid_factored.launches == before
+    assert got.dtype == torch.complex64 and got.shape == (nfft,)
+    gre, gim = extirpolate_grid_factored_plain(*args)
+    assert torch.equal(got, torch.complex(gre, gim))
+    jre, jim = jax_grid(ilo, u.real, u.imag, lag, nfft, interpret=True)
+    ref_jax = np.asarray(jre) + 1j * np.asarray(jim)
+    scale = max(1.0, np.abs(_add_at_f64(ilo, u, lag, nfft)).max())
+    np.testing.assert_allclose(got.numpy(), ref_jax, rtol=0, atol=5e-5 * scale)
+
+
 @pytest.mark.parametrize("taps", [4, 8])
 def test_cpu_wrapper_is_the_plain_version(taps):
     """A CPU tensor takes the plain path and launches nothing."""

@@ -12,6 +12,7 @@ import torch
 
 from periodicity_tpu.ops import trig_sum as jts
 from periodicity_tpu_torch.ops import trig_sum as pts
+from periodicity_tpu_torch.ops.grid2 import extirpolate_grid_factored_plain
 
 TOL = {np.float64: 1e-10, np.float32: 5e-5}
 
@@ -61,6 +62,44 @@ def test_trig_sum_pair_matches_jax(dtype, q):
     got = pts.trig_sum_pair(torch.from_numpy(t), torch.from_numpy(w1),
                             torch.from_numpy(w2), df, nf, fmin, q=q)
     _close([g.numpy() for g in got], ref, TOL[dtype])
+
+
+def _planes_trig_sums(t, w1, w2, df, nf, fmin, nfft, q=1):
+    """Both pipelines as they ran when the spreading returned (re, im)
+    planes, each joined by ``torch.complex`` before the IFFT."""
+    dtype, cdtype = t.dtype, pts.complex_dtype(t.dtype)
+    tmin = t.min()
+    trel = t - tmin
+    inds, lag = pts._extirpolate_weights(trel, df, nfft, dtype)
+    post = pts._grid_rotation(tmin, df, fmin, nf, dtype, cdtype)
+    u = torch.complex(w1, w2) * pts._phase_factor(fmin, trel, dtype, cdtype)
+    re, im = extirpolate_grid_factored_plain(inds[:, 0], u.real, u.imag, lag, nfft)
+    G = nfft * torch.fft.ifft(torch.complex(re, im))
+    back = torch.flip(torch.conj(G[nfft - q - nf + 1: nfft - q + 1]), dims=(0,))
+    G1 = 0.5 * (G[:nf] + back) * post
+    G2 = -0.5j * (G[:nf] - back) * post
+    wc = w1.to(cdtype) * pts._phase_factor(fmin, trel, dtype, cdtype)
+    re, im = extirpolate_grid_factored_plain(inds[:, 0], wc.real, wc.imag, lag, nfft)
+    g = torch.fft.ifft(torch.complex(re, im))[:nf] * post
+    return (G1.imag, G1.real, G2.imag, G2.real), (nfft * g.imag, nfft * g.real)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_complex_grid_leaves_cpu_sums_bit_equal(dtype):
+    """The pipelines take the complex grid straight from the spreading; on
+    the CPU their sums are bit for bit those of the planes joined by
+    ``torch.complex``."""
+    t, w1, w2 = (torch.from_numpy(a) for a in _series(seed=9, dtype=dtype, offset=50.0))
+    df = float(dtype(1.0 / (5 * 100.0)))
+    nf = 2000
+    fmin = 0.5 * df
+    nfft = pts.grid_size(nf)
+    want_pair, want_one = _planes_trig_sums(t, w1, w2, df, nf, fmin, nfft)
+    got_pair = pts.trig_sum_pair(t, w1, w2, df, nf, fmin)
+    got_one = pts.trig_sum(t, w1, df, nf, fmin)
+    for got, want in zip(got_pair + got_one, want_pair + want_one):
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want)
 
 
 def test_unsorted_times_scatter_and_gridder_names():
