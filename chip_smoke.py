@@ -40,11 +40,34 @@ kernels, and checks every phase:
    device time per launch, and the wrapper's host time per launch; the
    chained config-11 BLS rate with the device-busy share and the fold's
    device time per scan from one profiler window; the peak device memory
-   of one scan.
+   of one scan;
+11. config 1 (N = 1e4, nf = 25,000): the GLS rate over 50 chained
+   periodograms through the spreading kernel;
+12. config 6 (32 light curves, N = 1e5, nf = 1e6): ``gls_power_batch`` in
+   both layouts, the loop of kernel periodograms (two spreading launches a
+   row, counted) and the row spreading; two rows of each against float64
+   on the card, every row's best frequency; each layout's aggregate rate,
+   peak memory and device busy share;
+13. config 12 (K = 3, N = 1e4): ``gls_power_multiterm`` float32 fast
+   against float64 direct on the card, within twice the JAX package's own
+   float32 error plus eps32 * cond(G) per bin; its rate; the unrolled
+   Cholesky against one ``torch.linalg.solve`` of the same batch;
+14. config 14 (N = 1e6, nf = 1e5): the spreading kernel against its plain
+   version at both pipeline shapes, where every tile is dense; GLS float32
+   against float64; the rate; the kernel's times there against plain, one
+   ``index_add_`` call and its bound;
+15. ``GLS().bootstrap`` of 64 replicates at N = 2000 on the card: two
+   spreading launches a replicate (counted), the replicates against the
+   row-spreading layout on the same indices, the rate;
+16. the rest of the surface on the card: ``refine``, ``window``, ``model``,
+   ``fap``/``fal`` by bootstrap and Baluev, ``GLS(nterms=3)``, ``BGLST``
+   fast against direct and ``MultibandGLS`` fast against direct, each
+   finding its injected period.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (one GPU).
-Any failure raises and the exit code is non-zero. The line before the
-last is the kernels' JSON record; the last line is
+Any failure raises and the exit code is non-zero. Phases 11-16 print
+their rates as one JSON line; the line before the last is the kernels'
+JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -148,10 +171,12 @@ def host_us(fn, reps=200):
 def device_us(fn, name, reps):
     """Device time in microseconds per call of ``fn`` of the kernels whose
     name holds ``name`` (every kernel for ``""``), over ``reps`` calls in
-    one profiler window. A named kernel is launched once a call: a window
-    whose count of it is not ``reps`` is taken again, up to three windows,
-    since the profiler has been seen to miss some of a window's launches
-    (22 of 50 once); the last window must have them all."""
+    one profiler window. A named kernel is launched once a call, and its
+    time is the mean over the launches the window saw: the profiler has
+    been seen to miss some of a window's launches (22 of 50 once; 1 or 2
+    of 20 in every window at config 14's shape), so a window that saw
+    fewer than ``reps`` is taken again, up to three windows, and the last
+    must have seen at least half."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -168,9 +193,10 @@ def device_us(fn, name, reps):
         if not name or len(times) == reps:
             break
         print(f"profiler window saw {len(times)} of {reps} {name} launches; taken again")
-    check(not name or len(times) == reps,
-          f"the profiler saw {reps} {name} launches, got {len(times)}")
-    return sum(times) / reps
+    if not name:
+        return sum(times) / reps
+    check(2 * len(times) >= reps, f"the profiler saw {len(times)} of {reps} {name} launches")
+    return sum(times) / len(times)
 
 
 def event_ms(fn, reps):
@@ -185,6 +211,85 @@ def event_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def check_spreading(label, a):
+    """The factored spreading kernel on ``a = (ilo, u_re, u_im, lag, nfft)``
+    (CUDA tensors) against its plain version: within 1e-5 of the grid's
+    largest value from the float32 plain version and 1e-6 from the float64
+    one, the complex grid and the planes bit-equal, two calls bit-equal.
+    Returns the largest difference from the float32 plain version."""
+    import torch
+
+    from periodicity_tpu_torch.ops.grid2 import (
+        extirpolate_grid_factored,
+        extirpolate_grid_factored_plain,
+    )
+
+    nfft = a[4]
+    kc = extirpolate_grid_factored(*a, as_complex=True)
+    kre, kim = extirpolate_grid_factored(*a)
+    again = extirpolate_grid_factored(*a, as_complex=True)
+    pc = extirpolate_grid_factored_plain(*a, as_complex=True)
+    dc = extirpolate_grid_factored_plain(a[0], a[1].double(), a[2].double(), a[3].double(),
+                                         nfft, as_complex=True)
+    torch.cuda.synchronize()
+    check(kc.dtype == torch.complex64 and kc.shape == (nfft,), f"{label}: complex64 [nfft]")
+    check(torch.equal(kc.real, kre) and torch.equal(kc.imag, kim),
+          f"{label}: the complex grid and the planes bit-equal")
+    check(torch.equal(kc, again), f"{label}: two calls bit-equal")
+    k, d = torch.view_as_real(kc), torch.view_as_real(dc)
+    scale = float(d.abs().max())
+    err_plain = float((k - torch.view_as_real(pc)).abs().max())
+    err_f64 = float((k.double() - d).abs().max())
+    print(f"kernel vs plain [{label}, N={a[0].shape[0]}]: max|d| {err_plain:.3e} (f32 plain), "
+          f"{err_f64:.3e} (f64 plain), max|grid| {scale:.3e}; both layouts and two calls "
+          f"bit-equal")
+    check(err_plain <= 1e-5 * scale, f"{label}: kernel vs f32 plain {err_plain} > 1e-5*{scale}")
+    check(err_f64 <= 1e-6 * scale, f"{label}: kernel vs f64 plain {err_f64} > 1e-6*{scale}")
+    return err_plain
+
+
+def time_spreading(label, a, dev, card):
+    """Times of the factored spreading kernel on ``a``, its plain version
+    and the yardstick (CUDA events, warmed, in turns; and the profiler's
+    device time per call), in the layout the pipelines ask for: the
+    complex64 grid. The yardstick is a zero-fill and one index_add_ of the
+    products u * lag (made outside the timed call) on the flat indices.
+    The bound: ilo, u_re, u_im and lag read once, the complex64 grid
+    written once."""
+    import torch
+
+    from periodicity_tpu_torch.ops.grid2 import (
+        extirpolate_grid_factored,
+        extirpolate_grid_factored_plain,
+    )
+
+    ilo, ure, uim, lag, nfft = a
+    taps = lag.shape[1]
+    flat = (ilo.long()[:, None] + torch.arange(taps, device=dev)).reshape(-1)
+    prods = torch.stack([ure[:, None] * lag, uim[:, None] * lag], dim=-1).reshape(-1, 2)
+    fns = {
+        "kernel": lambda: extirpolate_grid_factored(*a, as_complex=True),
+        "plain": lambda: extirpolate_grid_factored_plain(*a, as_complex=True),
+        "library": lambda: torch.zeros(nfft, 2, device=dev).index_add_(0, flat, prods),
+    }
+    for fn in fns.values():
+        fn()
+    runs = {k: [] for k in fns}
+    for which in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        runs[which].append(event_ms(fns[which], 50))
+    got = {k: statistics.mean(v) for k, v in runs.items()}
+    got["device"] = device_us(fns["kernel"], "spread_walk", 20) / 1e3
+    got["library_device"] = device_us(fns["library"], "", 20) / 1e3
+    n = ilo.shape[0]
+    got["bound"] = bound(n * (4 + 4 + 4 + 4 * taps) + nfft * 8, n * taps * 2 * 2)
+    print(f"spreading [{label}, N={n}]: by events back to back, kernel {got['kernel']:.4f} "
+          f"ms, one index_add_ {got['library']:.4f} ms, plain {got['plain']:.4f} ms; device "
+          f"time per call (profiler), kernel {got['device']:.4f} ms, one index_add_ "
+          f"{got['library_device']:.4f} ms (zero-fill and index_add_); bound "
+          f"{got['bound'][0]:.4f} ms ({got['bound'][1]})  ({card})")
+    return got
 
 
 def kernel_family(name):
@@ -260,18 +365,26 @@ def gls_chain(gls_power, tc, yc, ec, dev):
     return chained
 
 
+def peak_bytes(fn):
+    """Peak device memory of one call of ``fn``, above what is held."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held
+
+
 def gls_peak(chained, card):
     """Peak device memory of one bench-shape periodogram through the
     kernel, above what is already held; in bytes."""
     import torch
 
     chained("kernel", 1)
-    torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    chained("kernel", 1)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - held
+    peak = peak_bytes(lambda: chained("kernel", 1))
     print(f"peak device memory of one bench-shape periodogram, above the {held / 2**20:.1f} MiB "
           f"already held: {peak / 2**20:.1f} MiB  ({card})")
     return peak
@@ -280,16 +393,14 @@ def gls_peak(chained, card):
 def main():
     import torch
 
+    start = time.perf_counter()
     # phase 1: the card
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
     from periodicity_tpu_torch import TSeries
     from periodicity_tpu_torch.ops import _kernels
-    from periodicity_tpu_torch.ops.grid2 import (
-        extirpolate_grid_factored,
-        extirpolate_grid_factored_plain,
-    )
+    from periodicity_tpu_torch.ops.grid2 import extirpolate_grid_factored
     from periodicity_tpu_torch.ops.trig_sum import grid_size
     from periodicity_tpu_torch.spectral import GLS, default_frequency_grid, gls_power
     from torch.profiler import ProfilerActivity, profile
@@ -329,29 +440,8 @@ def main():
     max_abs_err = 0.0
     for label, (ilo, ure, uim, lag) in cases.items():
         nfft = 1 << 23 if "2^23" in label else 1 << 22
-        a = (cuda(ilo), cuda(ure), cuda(uim), cuda(lag), nfft)
-        args[label] = a
-        kc = extirpolate_grid_factored(*a, as_complex=True)
-        kre, kim = extirpolate_grid_factored(*a)
-        again = extirpolate_grid_factored(*a, as_complex=True)
-        pc = extirpolate_grid_factored_plain(*a, as_complex=True)
-        dc = extirpolate_grid_factored_plain(a[0], a[1].double(), a[2].double(), a[3].double(),
-                                             nfft, as_complex=True)
-        torch.cuda.synchronize()
-        check(kc.dtype == torch.complex64 and kc.shape == (nfft,), f"{label}: complex64 [nfft]")
-        check(torch.equal(kc.real, kre) and torch.equal(kc.imag, kim),
-              f"{label}: the complex grid and the planes bit-equal")
-        check(torch.equal(kc, again), f"{label}: two calls bit-equal")
-        k, d = torch.view_as_real(kc), torch.view_as_real(dc)
-        scale = float(d.abs().max())
-        err_plain = float((k - torch.view_as_real(pc)).abs().max())
-        err_f64 = float((k.double() - d).abs().max())
-        print(f"kernel vs plain [{label}]: max|d| {err_plain:.3e} (f32 plain), "
-              f"{err_f64:.3e} (f64 plain), max|grid| {scale:.3e}; both layouts and two calls "
-              f"bit-equal")
-        check(err_plain <= 1e-5 * scale, f"{label}: kernel vs f32 plain {err_plain} > 1e-5*{scale}")
-        check(err_f64 <= 1e-6 * scale, f"{label}: kernel vs f64 plain {err_f64} > 1e-6*{scale}")
-        max_abs_err = max(max_abs_err, err_plain)
+        args[label] = a = (cuda(ilo), cuda(ure), cuda(uim), cuda(lag), nfft)
+        max_abs_err = max(max_abs_err, check_spreading(label, a))
 
     # phase 4: the estimator surface on the card, counted
     t, y, err = bench_draw()
@@ -432,39 +522,10 @@ def main():
     check(d_prec <= 1e-4, f"small f32 kernel vs f64 scatter {d_prec} > 1e-4 of peak")
     check(d_alg <= 1e-8, f"small f64 oracle vs direct {d_alg} > 1e-8 of peak")
 
-    # phase 6: times of the kernel, its plain version and the yardstick
-    # (CUDA events, warmed, in turns; and the profiler's device time per
-    # call), in the layout the pipelines ask for: the complex64 grid. The
-    # yardstick is a zero-fill and one index_add_ of the products u * lag
-    # (made outside the timed call) on the flat indices. The bound: ilo,
-    # u_re, u_im and lag read once, the complex64 grid written once.
-    times = {}
-    for label in ("pair 2^23", "2f 2^22", "clustered 2^23"):
-        ilo, ure, uim, lag, nfft = a = args[label]
-        taps = lag.shape[1]
-        flat = (ilo.long()[:, None] + torch.arange(taps, device=dev)).reshape(-1)
-        prods = torch.stack([ure[:, None] * lag, uim[:, None] * lag], dim=-1).reshape(-1, 2)
-        fns = {
-            "kernel": lambda: extirpolate_grid_factored(*a, as_complex=True),
-            "plain": lambda: extirpolate_grid_factored_plain(*a, as_complex=True),
-            "library": lambda: torch.zeros(nfft, 2, device=dev).index_add_(0, flat, prods),
-        }
-        for fn in fns.values():
-            fn()
-        runs = {k: [] for k in fns}
-        for which in ("plain", "kernel", "library", "library", "kernel", "plain"):
-            runs[which].append(event_ms(fns[which], 50))
-        got = {k: statistics.mean(v) for k, v in runs.items()}
-        got["device"] = device_us(fns["kernel"], "spread_walk", 20) / 1e3
-        got["library_device"] = device_us(fns["library"], "", 20) / 1e3
-        n = ilo.shape[0]
-        got["bound"] = bound(n * (4 + 4 + 4 + 4 * taps) + nfft * 8, n * taps * 2 * 2)
-        times[label] = got
-        print(f"spreading [{label}, N={n}]: by events back to back, kernel {got['kernel']:.4f} "
-              f"ms, one index_add_ {got['library']:.4f} ms, plain {got['plain']:.4f} ms; device "
-              f"time per call (profiler), kernel {got['device']:.4f} ms, one index_add_ "
-              f"{got['library_device']:.4f} ms (zero-fill and index_add_); bound "
-              f"{got['bound'][0]:.4f} ms ({got['bound'][1]})  ({card})")
+    # phase 6: times of the kernel, its plain version and one index_add_
+    # call at the main-path shapes and on the clustered draw
+    times = {label: time_spreading(label, args[label], dev, card)
+             for label in ("pair 2^23", "2f 2^22", "clustered 2^23")}
 
     chained = gls_chain(gls_power, tc, yc, ec, dev)
     rates = {}
@@ -503,7 +564,13 @@ def main():
         })
     b1_record["peak_mib_per_periodogram"] = peak / 2**20
     kernels = [b1_record]
+    t0 = time.perf_counter()
     kernels += phase_slice(dev, card, cuda)
+    t1 = time.perf_counter()
+    b1_record.update(spectral_slice(dev, card, cuda))
+    t2 = time.perf_counter()
+    print(f"wall time: phases 1-6 {t0 - start:.1f} s, 7-10 {t1 - t0:.1f} s, 11-16 "
+          f"{t2 - t1:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -726,16 +793,30 @@ def phase_slice(dev, card, cuda):
           f"and index_add_)  ({card})")
 
     # a heavily clustered draw (half the samples in one 2048-cell tile),
-    # whose samples overflow the kernel's ring of staged samples
+    # whose samples overflow the kernel's ring of staged samples; with its
+    # plain version and one index_add_ call on the same draw
     def b3_clustered():
         return extirpolate_grid(*grid_args["clustered 2^23"])
 
-    b3_clustered()
-    clustered_ms = event_ms(b3_clustered, 20)
+    clustered_times = timed(extirpolate_grid, extirpolate_grid_plain,
+                            grid_args["clustered 2^23"], 20, 20)
+    clustered_ms = clustered_times["kernel"]
     clustered_dev_us = device_us(b3_clustered, "spread_walk", 5)
+    ilo_c, vals_c, _ = grid_args["clustered 2^23"]
+    flat_c = (ilo_c.long()[:, None] + torch.arange(4, device=dev)).reshape(-1)
+    vals_c_re = torch.view_as_real(vals_c).reshape(-1, 2)
+
+    def library_clustered():
+        return torch.zeros(nfft3, 2, device=dev).index_add_(0, flat_c, vals_c_re)
+
+    library_clustered()
+    clustered_library = statistics.mean(event_ms(library_clustered, 20) for _ in range(2))
+    clustered_library_dev_us = device_us(library_clustered, "", 20)
     print(f"unfactored spreading [clustered 2^23, half the samples in one 2048-cell tile]: "
           f"kernel {clustered_ms:.4f} ms by events, {clustered_dev_us / 1e3:.4f} ms of device "
-          f"time  ({card})")
+          f"time; plain {clustered_times['plain']:.4f} ms; one index_add_ "
+          f"{clustered_library:.4f} ms by events, {clustered_library_dev_us / 1e3:.4f} ms of "
+          f"device time  ({card})")
 
     tc, yc, wc = cuda(t), cuda(y), cuda(w)
     pc = cuda(bls_periods.astype(np.float32))
@@ -783,10 +864,7 @@ def phase_slice(dev, card, cuda):
         print(f"  device {v / 1e3:9.3f} ms  {k[:90]}")
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
-    torch.cuda.reset_peak_memory_stats()
-    chained("kernel", 1)
-    torch.cuda.synchronize()
-    peak_mem = torch.cuda.max_memory_allocated() - held
+    peak_mem = peak_bytes(lambda: chained("kernel", 1))
     print(f"peak device memory of one config-11 BLS scan, above the {held / 2**20:.1f} MiB "
           f"already held: {peak_mem / 2**20:.1f} MiB  ({card})")
 
@@ -839,9 +917,461 @@ def phase_slice(dev, card, cuda):
             "device_ms": b3_dev_us / 1e3,
             "library_device_ms": library_dev_us / 1e3,
             "clustered_ms": clustered_ms,
+            "clustered_device_ms": clustered_dev_us / 1e3,
+            "clustered_plain_ms": clustered_times["plain"],
+            "clustered_library_ms": clustered_library,
+            "clustered_library_device_ms": clustered_library_dev_us / 1e3,
         },
     ]
 
+
+# the spectral slice's shapes (benchmarks/run_benchmarks.py): configs 1
+# (:33-67), 6 (:303-351), 12 (:662-703) and 14 (:814-880), and the
+# bootstrap at the verify drive's shape
+C1_N = 10_000
+C6_B, C6_N, C6_NF = 32, 100_000, 1_000_000
+C6_PERIODS = (5.0, 7.7, 11.0, 17.0, 23.0, 31.0, 43.0, 59.0) * 4
+C12_N = 10_000
+C14_N, C14_NF = 1_000_000, 100_000
+# the JAX package's float32 multi-term fast path against its float64 direct
+# method, at config 12 reduced to N = 2000 (same grid and signal model), as
+# a share of the peak, over the bins where cond(G) <= 1e4; pinned by
+# tests/test_torch_spectral.py::test_config12_tolerance_is_jax_float32_error
+C12_JAX_F32_ERR = 2.6e-5
+BOOT_N = 2000
+BOOT_R = 64
+
+
+def light_curve(n, baseline, seed=0, harmonic=False):
+    """A benchmark light curve: sorted uniform float32 times, a 7.7-day
+    sinusoid (plus its half-amplitude second harmonic for config 12) and
+    noise 0.3, errors 0.3."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, baseline, n)).astype(np.float32)
+    y = np.sin(2 * np.pi * t / PERIOD)
+    if harmonic:
+        y = y + 0.5 * np.sin(4 * np.pi * t / PERIOD + 0.4)
+    y = (y + 0.3 * rng.standard_normal(n)).astype(np.float32)
+    return t, y, np.full(n, 0.3, np.float32)
+
+
+def gram_cond(t, w, freqs, nterms):
+    """Condition number per frequency of the exact weighted Gram matrix
+    X^T W X + 1e-12 I of the harmonic design [1, cos(m w t), sin(m w t)]
+    (m <= nterms), float64, 256 frequencies at a time. Rounding in
+    any implementation of a scan over that design moves its power by up to
+    about eps * cond of the peak."""
+    import torch
+
+    t = t.double()
+    w = w.double() / w.double().sum()
+    eye = 1e-12 * torch.eye(2 * nterms + 1, dtype=torch.float64, device=t.device)
+    out = []
+    for s in range(0, freqs.shape[0], 256):
+        ph = (2 * math.pi) * freqs[s:s + 256, None].double() * t[None, :]
+        X = torch.stack([torch.ones_like(ph)] + [fn(m * ph) for m in range(1, nterms + 1)
+                                                  for fn in (torch.cos, torch.sin)], dim=-1)
+        out.append(torch.linalg.cond(X.transpose(-1, -2) @ (X * w[None, :, None]) + eye))
+    return torch.cat(out)
+
+
+def pipeline_spreading_inputs(t, w1, w2, df, fmin, nfft):
+    """What a float32 pipeline hands the spreading kernel for the sums of
+    (w1, w2) at (df, fmin) on ``nfft`` cells (ops/trig_sum.py): sorted
+    bases, the rotated weights and the Lagrange weights."""
+    import torch
+
+    from periodicity_tpu_torch.ops import trig_sum as ts
+
+    trel = t - t.min()
+    u = torch.complex(w1, w2) * ts._phase_factor(fmin, trel, torch.float32, torch.complex64)
+    inds, lag = ts._extirpolate_weights(trel, df, nfft, torch.float32)
+    return (inds[:, 0].to(torch.int32).contiguous(), u.real.contiguous(),
+            u.imag.contiguous(), lag.contiguous(), nfft)
+
+
+def profile_window(fn):
+    """(device busy ms, wall ms) of one call of ``fn`` in a profiler
+    window, ending in a synchronise."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+    check(busy > 0, "the profiler saw device work")
+    return busy / 1e3, wall * 1e3
+
+
+def spectral_slice(dev, card, cuda):
+    """Phases 11-16: the rest of spectral on the card. Returns B1's added
+    record: its launches on the batched and bootstrap paths and at config
+    14, and its times at config 14's two pipeline shapes."""
+    import torch
+
+    from periodicity_tpu_torch import TSeries
+    from periodicity_tpu_torch.models.spectral import _bootstrap_powers, _pair_q, _solve_spd_small
+    from periodicity_tpu_torch.ops.grid2 import extirpolate_grid_factored
+    from periodicity_tpu_torch.ops.trig_sum import grid_size
+    from periodicity_tpu_torch.spectral import (
+        BGLST,
+        GLS,
+        MultibandGLS,
+        bglst_log_ml,
+        default_frequency_grid,
+        gls_power,
+        gls_power_batch,
+        gls_power_multiband,
+        gls_power_multiterm,
+    )
+
+    record = {}
+    spectral = {}
+
+    # phase 11: config 1, the GLS rate at N = 1e4 (50 chained periodograms)
+    t, y, e = light_curve(C1_N, 100.0)
+    tc, yc, ec = cuda(t), cuda(y), cuda(e)
+    df = float(np.float32(1.0 / 500.0))
+    fmin = float(np.float32(df / 2))
+    nf1 = int((0.5 * C1_N / 100.0) / df)
+
+    def chain1(k=50):
+        yk, acc = yc, torch.zeros((), device=dev)
+        for _ in range(k):
+            p = gls_power(tc, yk, ec, df, fmin, nf1, pair_q=1, gridder="kernel")
+            yk = yk + p[:yk.shape[0]] * 1e-9
+            acc = acc + p[0]
+        return acc
+
+    chain1(2)
+    runs = [50 / (event_ms(chain1, 1) / 1e3) for _ in range(3)]
+    busy, wall = profile_window(lambda: chain1(5))
+    spectral["config1_periodograms_per_s"] = statistics.mean(runs)
+    spectral["config1_busy"] = busy / wall
+    print(f"config 1 (N={C1_N}, nf={nf1}): {statistics.mean(runs):.1f} periodograms/s over 50 "
+          f"chained, runs {[f'{r:.1f}' for r in runs]}; device busy {busy / 5:.4f} ms per "
+          f"periodogram ({busy / wall:.1%} of the wall time of 5)  ({card})")
+
+    # phase 12: config 6, gls_power_batch in both layouts
+    b, n6, nf6 = C6_B, C6_N, C6_NF
+    rng = np.random.default_rng(0)
+    t6 = np.sort(rng.uniform(0, 1000.0, n6)).astype(np.float32)
+    ys6 = np.stack([np.sin(2 * np.pi * t6 / p) for p in C6_PERIODS[:b]]).astype(np.float32)
+    t6c, ys6c, es6c = cuda(t6), cuda(ys6), cuda(np.full((b, n6), 0.3, np.float32))
+    df6 = float(np.float32(0.5 / 1000.0))
+    fmin6 = float(np.float32(df6 / 2))
+
+    def batch(layout, ys=ys6c):
+        gridder = "kernel" if layout == "kernel loop" else "scatter"
+        return gls_power_batch(t6c, ys, es6c, df6, fmin6, nf6, pair_q=1, gridder=gridder)
+
+    extirpolate_grid_factored.launches = 0
+    pk = batch("kernel loop")
+    torch.cuda.synchronize()
+    record["batch_launches"] = extirpolate_grid_factored.launches
+    print(f"config 6 (B={b}, N={n6}, nf={nf6}) kernel loop: {record['batch_launches']} spreading "
+          f"launches")
+    check(record["batch_launches"] == 2 * b, f"{2 * b} launches per batch, got "
+          f"{record['batch_launches']}")
+    ps = batch("row spreading")
+    k_nyq = int((0.5 / float(TSeries(t6c, ys6c[0]).median_dt) - fmin6) / df6) + 1
+    for layout, pw in (("kernel loop", pk), ("row spreading", ps)):
+        check(pw.shape == (b, nf6) and pw.dtype == torch.float32
+              and bool(torch.isfinite(pw).all()), f"{layout}: finite [B, nf] float32")
+        f_best = fmin6 + df6 * torch.argmax(pw, dim=1).double().cpu().numpy()
+        off = np.abs(f_best - 1 / np.array(C6_PERIODS[:b]))
+        # df6 is a 0.5%-wide period cell only up to P = 20 d: each row's
+        # best frequency is held to the cell of its injected one
+        check((off <= df6).all(), f"{layout}: best frequencies within one cell, off {off.max()}")
+        for i in (1, b - 1):
+            ref = gls_power(t6c.double(), ys6c[i].double(), es6c[i].double(), df6, fmin6, nf6,
+                            pair_q=1, gridder="scatter")
+            dp = (pw[i].double() - ref).abs() / ref.max()
+            d_band, d_all = float(dp[:k_nyq].max()), float(dp.max())
+            print(f"config 6 {layout}, row {i} (P={C6_PERIODS[i]}): f32 vs f64 max|dp|/peak "
+                  f"{d_band:.3e} below pseudo-Nyquist ({k_nyq} bins), {d_all:.3e} on all; best "
+                  f"period {1 / f_best[i]:.4f}")
+            check(d_band <= 1e-4 and d_all <= 5e-4, f"config 6 {layout} row {i}: {d_band}, "
+                  f"{d_all}")
+        print(f"config 6 {layout}: every row's best frequency within one cell of its injected "
+              f"one (largest offset {off.max():.3e}, cell {df6:.1e})")
+    del pk, ps
+
+    def chain6(layout, k=5):
+        ys, acc = ys6c, torch.zeros((), device=dev)
+        for _ in range(k):
+            p = batch(layout, ys)
+            ys = ys + p[:, :n6] * 1e-9
+            acc = acc + p[:, 0].sum()
+        return acc
+
+    rates = {}
+    for layout in ("kernel loop", "row spreading", "row spreading", "kernel loop"):
+        ms = event_ms(lambda: chain6(layout), 1)
+        rates.setdefault(layout, []).append(b * nf6 * 5 / (ms / 1e3))
+    for layout, r in rates.items():
+        key = layout.split()[0]
+        busy, wall = profile_window(lambda: batch(layout))
+        mem = peak_bytes(lambda: batch(layout))
+        spectral[f"config6_{key}_freqs_per_s"] = statistics.mean(r)
+        spectral[f"config6_{key}_peak_mib"] = mem / 2**20
+        spectral[f"config6_{key}_busy"] = busy / wall
+        print(f"config 6 {layout}: {statistics.mean(r):.4e} aggregate trial-freqs/s (K=5 chained "
+              f"batches), runs {[f'{x:.4e}' for x in r]}; one batch: device busy {busy:.2f} ms of "
+              f"{wall:.2f} ms wall ({busy / wall:.1%}), peak memory {mem / 2**20:.1f} MiB  "
+              f"({card})")
+    del ys6c, es6c
+
+    # phase 13: config 12, the multi-term scan (K = 3), f32 fast vs f64 direct
+    t, y, e = light_curve(C12_N, 100.0, harmonic=True)
+    tc, yc, ec = cuda(t), cuda(y), cuda(e)
+    nf12 = int((0.5 * C12_N / 100.0) / df)
+    p32 = gls_power_multiterm(tc, yc, ec, df, fmin, nf12, 3)
+    p64 = gls_power_multiterm(tc.double(), yc.double(), ec.double(), df, fmin, nf12, 3,
+                              method="direct")
+    freqs = fmin + df * torch.arange(nf12, dtype=torch.float64, device=dev)
+    cond = gram_cond(tc, ec ** -2.0, freqs, 3)
+    peak = float(p64.max())
+    eps32 = float(torch.finfo(torch.float32).eps)
+    tol = (2 * C12_JAX_F32_ERR + 1e-6 + eps32 * cond) * peak
+    err12 = (p32.double() - p64).abs()
+    conditioned = eps32 * cond < 1
+    check(p32.shape == (nf12,) and bool(torch.isfinite(p32[conditioned]).all()),
+          "config 12: finite power wherever float32 keeps a digit of the normal equations")
+    ok = (err12 <= tol) | ~torch.isfinite(p32)
+    worst = float((err12 / tol)[torch.isfinite(p32)].max())
+    well = cond <= 1e4
+    print(f"config 12 (K=3, N={C12_N}, nf={nf12}): f32 fast vs f64 direct max|dp|/peak "
+          f"{float(err12[well].max()) / peak:.3e} where cond(G) <= 1e4 ({int(well.sum())} bins; "
+          f"JAX at reduced N: {C12_JAX_F32_ERR:.1e}), largest share of the per-bin tolerance "
+          f"{worst:.3f}; cond(G) of the first bins {[f'{c:.2e}' for c in cond[:3].tolist()]}")
+    check(bool(ok.all()), "config 12: f32 fast vs f64 direct within the per-bin tolerance")
+    f_best = fmin + df * int(torch.argmax(torch.nan_to_num(p32, nan=-1.0)))
+    print(f"config 12: best period {1 / f_best:.4f} (injected {PERIOD}; cell {df:.1e})")
+    check(abs(f_best - 1 / PERIOD) <= df, f"config 12 best frequency {f_best} within one cell")
+
+    def chain12(k=10):
+        yk, acc = yc, torch.zeros((), device=dev)
+        for _ in range(k):
+            p = gls_power_multiterm(tc, yk, ec, df, fmin, nf12, 3)
+            yk = yk + p[:yk.shape[0]] * 1e-9
+            acc = acc + p[0]
+        return acc
+
+    chain12(1)
+    runs = [nf12 * 10 / (event_ms(chain12, 1) / 1e3) for _ in range(2)]
+    busy12, wall12 = profile_window(lambda: chain12(2))
+    spectral["config12_freqs_per_s"] = statistics.mean(runs)
+    spectral["config12_busy"] = busy12 / wall12
+    # the unrolled Cholesky of the scan against one torch.linalg.solve of
+    # the same [nf, 7, 7] float32 batch (a well-conditioned random one)
+    rng = np.random.default_rng(12)
+    a = cuda(rng.standard_normal((nf12, 10, 7)).astype(np.float32))
+    G = a.transpose(-1, -2) @ a + 1e-3 * torch.eye(7, device=dev)
+    bvec = cuda(rng.standard_normal((nf12, 7)).astype(np.float32))
+    solve_runs = {"unrolled": [], "library": []}
+    fns = {"unrolled": lambda: _solve_spd_small(G, bvec),
+           "library": lambda: torch.linalg.solve(G, bvec[..., None])[..., 0]}
+    x_un, x_lib = fns["unrolled"](), fns["library"]()
+    rel = float((x_un - x_lib).abs().max() / x_lib.abs().max())
+    check(rel <= 1e-3, f"unrolled solve vs torch.linalg.solve {rel}")
+    for which in ("unrolled", "library", "library", "unrolled"):
+        solve_runs[which].append(event_ms(fns[which], 20))
+    solve = {k: statistics.mean(v) for k, v in solve_runs.items()}
+    solve_dev = {k: device_us(fn, "", 5) / 1e3 for k, fn in fns.items()}
+    spectral["config12_solve_ms"] = solve["unrolled"]
+    spectral["config12_solve_device_ms"] = solve_dev["unrolled"]
+    spectral["config12_linalg_solve_ms"] = solve["library"]
+    spectral["config12_linalg_solve_device_ms"] = solve_dev["library"]
+    print(f"config 12: {statistics.mean(runs):.4e} trial-freqs/s (K=10 chained), runs "
+          f"{[f'{r:.4e}' for r in runs]}; device busy {busy12 / 2:.3f} ms per scan "
+          f"({busy12 / wall12:.1%}); the [{nf12}, 7, 7] f32 solve: unrolled Cholesky "
+          f"{solve['unrolled']:.3f} ms by events ({solve_dev['unrolled']:.3f} ms device), one "
+          f"torch.linalg.solve {solve['library']:.3f} ms ({solve_dev['library']:.3f} ms device); "
+          f"agree to {rel:.1e}  ({card})")
+
+    # phase 14: config 14, N = 1e6 onto 2^19 and 2^18 cells: every tile dense
+    n14, nf14 = C14_N, C14_NF
+    t, y, e = light_curve(n14, 1000.0)
+    tc, yc, ec = cuda(t), cuda(y), cuda(e)
+    df14 = float(np.float32(1.0 / 5000.0))
+    fmin14 = float(np.float32(df14 / 2))
+    w = ec ** -2.0
+    w = w / w.sum()
+    wy = w * (yc - torch.dot(w, yc))
+    nfft14 = grid_size(nf14)
+    log2 = nfft14.bit_length() - 1
+    pair_label, f2_label = f"config 14 pair 2^{log2}", f"config 14 2f 2^{log2 - 1}"
+    shapes = {
+        pair_label: pipeline_spreading_inputs(tc, wy, w, df14, fmin14, nfft14),
+        f2_label: pipeline_spreading_inputs(tc, w, torch.zeros_like(w), 2 * df14, 2 * fmin14,
+                                            nfft14 // 2),
+    }
+    c14_err = 0.0
+    for label, a in shapes.items():
+        per_tile = a[0].shape[0] / (int(a[0].max()) // TILE + 1)
+        print(f"{label}: {per_tile:.0f} samples per occupied 2048-cell tile on average "
+              f"(the ring holds 512)")
+        c14_err = max(c14_err, check_spreading(label, a))
+    extirpolate_grid_factored.launches = 0
+    p32 = gls_power(tc, yc, ec, df14, fmin14, nf14, pair_q=1, gridder="kernel")
+    torch.cuda.synchronize()
+    record["config14_launches"] = extirpolate_grid_factored.launches
+    check(record["config14_launches"] == 2, "config 14: two spreading launches")
+    p64 = gls_power(tc.double(), yc.double(), ec.double(), df14, fmin14, nf14, pair_q=1,
+                    gridder="scatter")
+    d14 = float((p32.double() - p64).abs().max() / p64.max())
+    best = 1 / (fmin14 + df14 * int(torch.argmax(p32)))
+    print(f"config 14 (N={n14}, nf={nf14}): f32 kernel vs f64 scatter max|dp|/peak {d14:.3e} "
+          f"(the whole grid lies below pseudo-Nyquist); best period {best:.5f}")
+    check(bool(torch.isfinite(p32).all()) and d14 <= 1e-4, f"config 14 f32 vs f64 {d14}")
+    check(abs(best - PERIOD) <= 0.005 * PERIOD, f"config 14 best period {best}")
+
+    def chain14(k=10):
+        yk, acc = yc, torch.zeros((), device=dev)
+        for _ in range(k):
+            p = gls_power(tc, yk, ec, df14, fmin14, nf14, pair_q=1, gridder="kernel")
+            yk = torch.cat([yk[:nf14] + p * 1e-9, yk[nf14:]])
+            acc = acc + p[0]
+        return acc
+
+    chain14(1)
+    runs = [10 / (event_ms(chain14, 1) / 1e3) for _ in range(2)]
+    busy, wall = profile_window(lambda: chain14(3))
+    spectral["config14_periodograms_per_s"] = statistics.mean(runs)
+    spectral["config14_busy"] = busy / wall
+    print(f"config 14: {statistics.mean(runs):.2f} periodograms/s (K=10 chained), runs "
+          f"{[f'{r:.2f}' for r in runs]}; device busy {busy / 3:.4f} ms per periodogram "
+          f"({busy / wall:.1%})  ({card})")
+    for prefix, label in (("c14_", pair_label), ("c14_2f_", f2_label)):
+        got = time_spreading(label, shapes[label], dev, card)
+        record.update({
+            f"{prefix}ms": got["kernel"],
+            f"{prefix}plain_ms": got["plain"],
+            f"{prefix}bound_ms": got["bound"][0],
+            f"{prefix}bound_by": got["bound"][1],
+            f"{prefix}library_ms": got["library"],
+            f"{prefix}device_ms": got["device"],
+            f"{prefix}library_device_ms": got["library_device"],
+        })
+    record["c14_max_abs_err"] = c14_err
+    del shapes, tc, yc, ec, w, wy
+
+    # phase 15: bootstrap at the verify drive's shape through the kernel
+    rng = np.random.default_rng(1)
+    tb = np.sort(rng.uniform(0, 100, BOOT_N)).astype(np.float32)
+    yb = (np.sin(2 * np.pi * tb / PERIOD) + 0.3 * rng.standard_normal(BOOT_N)).astype(np.float32)
+    ts = TSeries(cuda(tb), cuda(yb))
+    gls = GLS()
+    pg = gls(ts)
+    check(gls._gridder_resolved == "kernel", "bootstrap: the estimator picked the kernel")
+    extirpolate_grid_factored.launches = 0
+    reps = gls.bootstrap(BOOT_R, random_seed=0)
+    record["bootstrap_launches"] = extirpolate_grid_factored.launches
+    check(record["bootstrap_launches"] == 2 * BOOT_R,
+          f"two launches per replicate, got {record['bootstrap_launches']}")
+    check(reps.shape == (BOOT_R,) and np.isfinite(reps).all(), "bootstrap replicates finite")
+    freq = gls.frequency
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx = torch.randint(0, BOOT_N, (BOOT_R, BOOT_N), generator=gen, device=dev)
+    kw = dict(pair_q=_pair_q(freq[1] - freq[0], freq[0], freq.size))
+    args = (idx, ts.time, ts.values, gls.err, float(freq[1] - freq[0]), float(freq[0]),
+            freq.size)
+    again = _bootstrap_powers(*args, gridder="kernel", **kw).cpu().numpy()
+    rows = _bootstrap_powers(*args, gridder="scatter", **kw).cpu().numpy()
+    d_boot = float(np.abs(rows - reps).max() / reps.max())
+    print(f"bootstrap ({BOOT_R} replicates, N={BOOT_N}, nf={freq.size}): "
+          f"{record['bootstrap_launches']} spreading launches; replicates vs the row-spreading "
+          f"layout on the same indices max|d|/max {d_boot:.3e}")
+    check(np.array_equal(again, reps), "the estimator's replicates are those of its indices")
+    check(d_boot <= 1e-4, f"bootstrap kernel vs row spreading {d_boot}")
+    gls.bootstrap(BOOT_R)
+    runs = [BOOT_R / (event_ms(lambda: gls.bootstrap(BOOT_R), 1) / 1e3) for _ in range(2)]
+    busy, wall = profile_window(lambda: gls.bootstrap(BOOT_R))
+    spectral["bootstrap_replicates_per_s"] = statistics.mean(runs)
+    spectral["bootstrap_busy"] = busy / wall
+    print(f"bootstrap: {statistics.mean(runs):.1f} replicates/s, runs "
+          f"{[f'{r:.1f}' for r in runs]}; device busy {busy / BOOT_R:.4f} ms per replicate "
+          f"({busy / wall:.1%})  ({card})")
+
+    # phase 16: the rest of the surface, once each on the card
+    peak_power = float(pg.values.max())
+    check(gls.fap(peak_power) == 0.0 and 0 < gls.fal(0.5) < peak_power, "bootstrap FAP/FAL")
+    z = gls.fal(0.05, method="baluev")
+    check(abs(float(gls.fap(z, method="baluev")) - 0.05) <= 1e-6 * 0.05, "Baluev FAP/FAL")
+    gls.refine(n_peaks=2)
+    g64 = GLS()
+    g64(TSeries(ts.time.double(), ts.values.double()))
+    g64.refine(n_peaks=2)
+    check(abs(gls.refined_fbest - g64.refined_fbest) <= 1e-6,
+          f"refine: {gls.refined_fbest} vs the f64 direct {g64.refined_fbest}")
+    win = gls.window().values
+    check(win.shape == pg.values.shape and bool(torch.isfinite(win).all()), "window")
+    fit = gls.model(tb, 1 / PERIOD).values.cpu().numpy()
+    corr = float(np.corrcoef(fit, np.sin(2 * np.pi * tb / PERIOD))[0, 1])
+    check(corr > 0.99, f"model correlates with the injected sinusoid: {corr}")
+    # the 3-harmonic model nests the sinusoid: its largest power is at least
+    # the single-term peak (on a pure sinusoid it is reached at P and at 2P)
+    # (float32 gives NaN or noise where it keeps no digit of the normal
+    # equations, at the lowest bins, as the JAX package does)
+    g3 = GLS(nterms=3)
+    p3 = g3(ts).values
+    cond3 = gram_cond(ts.time, g3.err ** -2.0, torch.from_numpy(g3.frequency).to(dev), 3)
+    best3 = float(torch.nan_to_num(p3, nan=-1.0).max())
+    check(bool(torch.isfinite(p3[eps32 * cond3 < 1]).all()) and best3 >= peak_power - 1e-3,
+          f"GLS(nterms=3) peak {best3} vs the single-term {peak_power}")
+    print(f"surface on card: refine {gls.refined_fbest:.8f} (f64 {g64.refined_fbest:.8f}); "
+          f"window finite; model corr {corr:.5f}; Baluev FAL(0.05) {z:.5f}; bootstrap FAL(0.5) "
+          f"{gls.fal(0.5):.5f}; GLS(nterms=3) peak power {best3:.5f} (single-term "
+          f"{peak_power:.5f})")
+
+    rng = np.random.default_rng(5)
+    tg = np.sort(rng.uniform(0, 60, 400))
+    yg = np.sin(2 * np.pi * tg / 6.1) + 0.05 * tg + 0.2 * rng.standard_normal(400)
+    bts = TSeries(cuda(tg), cuda(yg))
+    fs = BGLST()(bts, err=np.full(400, 0.2))  # the fast method
+    _, dfb, fminb = default_frequency_grid(bts)
+    direct = bglst_log_ml(bts.time, bts.values, cuda(np.full(400, 0.2)) ** -2.0, dfb, fminb,
+                          fs.values.shape[0])
+    fast = fs.values
+    bad = ((fast - direct).abs() > 5e-8 + 1e-7 * direct.abs()).sum()
+    best_b = float(1 / fs.frequency[int(torch.argmax(fs.values))])
+    print(f"BGLST on card (f64): fast vs direct max|d| {float((fast - direct).abs().max()):.3e} "
+          f"(JAX's bound: atol 5e-8, rtol 1e-7); best period {best_b:.4f} (injected 6.1)")
+    check(int(bad) == 0, "BGLST fast vs direct")
+    check(abs(best_b - 6.1) <= 0.1, f"BGLST best period {best_b}")
+
+    rng = np.random.default_rng(7)
+    parts = []
+    for s in range(3):
+        tm = np.sort(rng.uniform(0, 40, 180))
+        ym = ((0.0, 5.0, -4.0)[s] + (1.0, 0.7, 1.3)[s]
+              * np.sin(2 * np.pi * tm / 2.3 + 2 * np.pi * s / 3) + 0.05 * rng.standard_normal(180))
+        parts.append((tm, ym))
+    mb = MultibandGLS(fmax=2.0)
+    mfs = mb({s: TSeries(cuda(tm), cuda(ym)) for s, (tm, ym) in enumerate(parts)},
+             err={s: np.full(180, 0.05) for s in range(3)})
+    freq = mb.frequency
+    args = (mb.signal.time, mb.signal.values, mb.err, mb.bands, 3, float(freq[1] - freq[0]),
+            float(freq[0]), freq.size)
+    mdirect = gls_power_multiband(*args, method="direct")
+    bad = ((mfs.values - mdirect).abs() > 5e-6 + 1e-7 * mdirect.abs()).sum()
+    best_m = float(mfs.period_at_highest_peak)
+    print(f"MultibandGLS on card (f64): fast vs direct max|d| "
+          f"{float((mfs.values - mdirect).abs().max()):.3e} (JAX's bound: atol 5e-6); best "
+          f"period {best_m:.4f} (injected 2.3)")
+    check(int(bad) == 0, "MultibandGLS fast vs direct")
+    check(abs(best_m - 2.3) <= 0.05 * 2.3, f"MultibandGLS best period {best_m}")
+
+    print(json.dumps({"spectral": spectral}))
+    return record
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,13 +2,14 @@
 
 The same estimator API as ``periodicity_tpu``, on torch tensors, with the
 TPU package's Pallas kernels rewritten by hand for NVIDIA Hopper. Ported
-so far: the GLS main path, ``GLS()(TSeries(t, y))``, and the phase-folding
-estimators (BLS, AoV, ConditionalEntropy, GregoryLoredo, PDM,
-StringLength). Non-tensor inputs land on the card unless ``device="cpu"``
+so far: the spectral estimators (GLS with its bootstrap, FAP/FAL,
+refinement, window, model and harmonic terms; batched GLS; MultibandGLS;
+BGLST) and the phase-folding estimators (BLS, AoV, ConditionalEntropy,
+GregoryLoredo, PDM, StringLength). Non-tensor inputs land on the card unless ``device="cpu"``
 is asked for. Module layout mirrors the JAX package::
 
     periodicity_tpu_torch.core       TSeries / FSeries, from_jax
-    periodicity_tpu_torch.spectral   GLS (+ gls_power)
+    periodicity_tpu_torch.spectral   GLS, MultibandGLS, BGLST (+ their scans)
     periodicity_tpu_torch.phase      BLS, AoV, PDM, ... (+ their scans)
     periodicity_tpu_torch.ops        trig sums, spreading and fold kernels, peaks
 """

@@ -1,10 +1,11 @@
 """Labeled series containers over torch tensors (TSeries / FSeries).
 
-Port of the slice of ``periodicity_tpu/core/containers.py`` that the GLS
-path uses: the constructors (sorting by coordinate), the shape surface,
-``argmax``/``max``, the time-grid properties of ``TSeries`` and the
-peak readout of ``FSeries``. Tensors keep their device and dtype.
-Array-likes that are not tensors go through numpy first, so Python floats
+Port of the slice of ``periodicity_tpu/core/containers.py`` that the
+spectral estimators use: the constructors (sorting by coordinate), the
+shape surface, ``argmax``/``max``/``amax``, the arithmetic operators on
+tensors, numbers and other series, the time-grid properties of
+``TSeries`` and the peak readout of ``FSeries``. Tensors keep their
+device and dtype. Array-likes that are not tensors go through numpy first, so Python floats
 become float64 as under JAX's x64 mode, and land on the card
 (``torch.device("cuda")``) unless ``device`` says otherwise; a coordinate
 given as an array-like follows its values' device. Without a CUDA device
@@ -13,10 +14,13 @@ never falls back to the CPU quietly. The peak kernels are imported when
 first used.
 """
 
+import operator
+from numbers import Number
+
 import numpy as np
 import torch
 
-__all__ = ["Signal", "TSeries", "FSeries", "as_tensor"]
+__all__ = ["Signal", "TSeries", "FSeries", "as_tensor", "nanmax"]
 
 
 def _default_device(device=None):
@@ -49,6 +53,16 @@ def _place(x, device, follow):
     return as_tensor(x, device)
 
 
+def nanmax(x, dim=None):
+    """Largest value of ``x`` (along ``dim``) ignoring NaNs, NaN where all
+    are, as ``jnp.nanmax``."""
+    nan = torch.isnan(x)
+    m = torch.where(nan, float("-inf"), x)
+    if dim is None:
+        return torch.where(nan.all(), float("nan"), m.max())
+    return torch.where(nan.all(dim), float("nan"), m.amax(dim))
+
+
 def _median(x):
     """Median that averages the two middle values of an even count, as
     ``jnp.median`` does (``torch.median`` returns the lower one)."""
@@ -61,6 +75,8 @@ def _median(x):
 
 class Signal:
     """Base container: a named-coordinate tensor."""
+
+    _HANDLED_TYPES = (Number, np.ndarray, torch.Tensor)
 
     @property
     def values(self):
@@ -93,6 +109,45 @@ class Signal:
         idx = np.unravel_index(int(self.argmax()), self.shape)
         return self[tuple(slice(i, i + 1) for i in idx)]
 
+    def amax(self):
+        """Largest value ignoring NaNs (0-d tensor; NaN if all are)."""
+        return nanmax(self._values)
+
+    # -- arithmetic: a series of the same class on the same coordinate ------
+    def _binop(self, other, op, reflexive=False):
+        if not isinstance(other, self._HANDLED_TYPES + (Signal, list)):
+            return NotImplemented
+        if isinstance(other, Signal):
+            other = other._values
+        elif isinstance(other, (np.ndarray, list)):
+            other = as_tensor(other, self._values.device)
+        a, b = (other, self._values) if reflexive else (self._values, other)
+        return self._replace_data(op(a, b))
+
+    def __add__(self, o):
+        return self._binop(o, operator.add)
+
+    def __radd__(self, o):
+        return self._binop(o, operator.add, True)
+
+    def __sub__(self, o):
+        return self._binop(o, operator.sub)
+
+    def __rsub__(self, o):
+        return self._binop(o, operator.sub, True)
+
+    def __mul__(self, o):
+        return self._binop(o, operator.mul)
+
+    def __rmul__(self, o):
+        return self._binop(o, operator.mul, True)
+
+    def __truediv__(self, o):
+        return self._binop(o, operator.truediv)
+
+    def __rtruediv__(self, o):
+        return self._binop(o, operator.truediv, True)
+
 
 class TSeries(Signal):
     """1-D time-indexed series (reference core.py:460-856)."""
@@ -122,6 +177,9 @@ class TSeries(Signal):
     @property
     def time(self):
         return self._time
+
+    def _replace_data(self, data):
+        return TSeries(self._time, data, assume_sorted=True)
 
     def __getitem__(self, key):
         if isinstance(key, tuple):
@@ -171,6 +229,9 @@ class FSeries(Signal):
     @property
     def period(self):
         return 1.0 / self._frequency
+
+    def _replace_data(self, data):
+        return FSeries(self._frequency, data, assume_sorted=True)
 
     def __getitem__(self, key):
         if isinstance(key, tuple):

@@ -21,6 +21,10 @@ Gridders: ``"scatter"`` is the plain ``index_add_`` spreading on any
 device; ``"kernel"`` (alias ``"pallas"``, the JAX package's name) runs
 the hand-written CUDA kernel for float32 grids of at least 512 cells and
 needs time-sorted samples on a non-wrapping grid (df * baseline < 1).
+
+``trig_sum_batch`` and ``trig_sum_batch_pair`` take B weight rows sharing
+one time grid through one ``index_add_`` of (tap x re/im x row)-packed
+rows, the counterpart of the JAX package's XLA row scatter.
 """
 
 import math
@@ -30,7 +34,7 @@ import torch
 from ..utils.dtypes import complex_dtype, result_dtype
 from .grid2 import extirpolate_grid_factored, extirpolate_grid_factored_plain
 
-__all__ = ["trig_sum", "trig_sum_pair", "grid_size"]
+__all__ = ["trig_sum", "trig_sum_batch", "trig_sum_batch_pair", "trig_sum_pair", "grid_size"]
 
 
 def grid_size(nf, n=5):
@@ -188,6 +192,81 @@ def trig_sum_pair(t, w1, w2, df, nf, fmin, nfft=None, n=5, q=1,
     G1 = G1 * post
     G2 = G2 * post
     return G1.imag, G1.real, G2.imag, G2.real
+
+
+def _batch_row_grid(u_rows, trel, df, nfft, dtype, taps=4):
+    """Complex grids [B, nfft] of B complex weight rows on one time grid:
+    ONE ``index_add_`` of N bases whose rows pack (tap x re/im x row) =
+    2*taps*B values onto an (nfft + taps)-row grid, then the tap blocks
+    recombined by shifted slices. Bases never wrap (they are clamped to
+    nfft - taps), so any sample order is summed correctly."""
+    b = u_rows.shape[0]
+    inds, lag = _extirpolate_weights(trel, df, nfft, dtype, taps=taps)
+    ur = u_rows.real.T
+    ui = u_rows.imag.T
+    rows = torch.cat(
+        [torch.cat([lag[:, j:j + 1] * ur, lag[:, j:j + 1] * ui], dim=1) for j in range(taps)],
+        dim=1,
+    )  # [N, taps * 2B]
+    grid = torch.zeros(nfft + taps, 2 * taps * b, dtype=dtype, device=trel.device)
+    grid.index_add_(0, inds[:, 0], rows)
+    total = grid[0:nfft, 0:2 * b]
+    for j in range(1, taps):
+        block = grid[:, 2 * b * j: 2 * b * (j + 1)]
+        total = total + torch.cat(
+            [torch.zeros(j, 2 * b, dtype=dtype, device=trel.device), block[: nfft - j]], dim=0
+        )
+    return torch.complex(total[:, :b].T, total[:, b:].T)
+
+
+def trig_sum_batch_pair(t, w1_rows, w2_rows, df, nf, fmin, nfft=None, n=5, q=1, taps=4):
+    """The (w1, w2) sums of B rows at the same half-bin grid
+    (fmin = q*df/2) from ONE row spreading and ONE batched IFFT: the row
+    packing of :func:`trig_sum_batch` with the separation of
+    :func:`trig_sum_pair`. Returns (S1, C1, S2, C2), each [B, nf]."""
+    if nfft is None:
+        nfft = grid_size(nf, n)
+    dtype = result_dtype(t, w1_rows, w2_rows)
+    cdtype = complex_dtype(dtype)
+    t = t.to(dtype)
+    tmin = t.min()
+    trel = t - tmin
+    rot = _phase_factor(fmin, trel, dtype, cdtype)
+    u = torch.complex(w1_rows.to(dtype), w2_rows.to(dtype)) * rot[None, :]
+    G = nfft * torch.fft.ifft(_batch_row_grid(u, trel, df, nfft, dtype, taps=taps), dim=-1)
+    back = torch.flip(torch.conj(G[:, nfft - q - nf + 1: nfft - q + 1]), dims=(-1,))
+    G1 = 0.5 * (G[:, :nf] + back)
+    G2 = -0.5j * (G[:, :nf] - back)
+    post = _grid_rotation(tmin, df, fmin, nf, dtype, cdtype)[None, :]
+    G1 = G1 * post
+    G2 = G2 * post
+    return G1.imag, G1.real, G2.imag, G2.real
+
+
+def trig_sum_batch(t, w_rows, df, nf, fmin, nfft=None, n=5, taps=4):
+    """Fast trig sums for B weight rows sharing one time grid.
+
+    t: [N] shared sample times (any order: the row spreading is
+       ``index_add_``, which needs no sorted bases).
+    w_rows: [B, N] real weight rows, on ``t``'s device.
+    df, fmin: uniform grid spec (Python scalars); nf frequencies; nfft
+       the FFT size, next_pow2(nf*n - 1) by default.
+
+    Returns (S [B, nf], C [B, nf]).
+    """
+    if nfft is None:
+        nfft = grid_size(nf, n)
+    dtype = result_dtype(t, w_rows)
+    cdtype = complex_dtype(dtype)
+    t = t.to(dtype)
+    w_rows = w_rows.to(dtype)
+    tmin = t.min()
+    trel = t - tmin
+    rot = _phase_factor(fmin, trel, dtype, cdtype)
+    u = w_rows.to(cdtype) * rot[None, :]
+    fftgrid = torch.fft.ifft(_batch_row_grid(u, trel, df, nfft, dtype, taps=taps), dim=-1)[:, :nf]
+    fftgrid = fftgrid * _grid_rotation(tmin, df, fmin, nf, dtype, cdtype)[None, :]
+    return nfft * fftgrid.imag, nfft * fftgrid.real
 
 
 def trig_sum(t, w, df, nf, fmin, nfft=None, n=5, gridder="scatter", taps=4):

@@ -126,8 +126,8 @@ def test_tseries_sorts_and_gls_defaults():
     p = g(ts)
     assert isinstance(p, FSeries) and p.values.dtype == torch.float64
     assert g.copy().fmax == 2.0
-    with pytest.raises(NotImplementedError):
-        GLS(nterms=2)
+    harmonic = GLS(fmax=2.0, nterms=2)
+    assert harmonic.copy().nterms == 2 and harmonic(ts).values.shape == p.values.shape
 
 
 def test_card_is_the_default_device(monkeypatch):

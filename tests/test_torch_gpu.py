@@ -1,6 +1,6 @@
 """The CUDA kernels (the spreading kernel through both of its entry points,
-the phase fold) against their plain versions, and the GLS and BLS paths,
-on the card.
+the phase fold) against their plain versions, and the GLS, batched GLS,
+bootstrap, rest-of-spectral and BLS paths, on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the device and
 skips where there is none. Run on a GPU machine without the repo's
@@ -13,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import gram_cond
 from periodicity_tpu_torch import TSeries
+from periodicity_tpu_torch.models.spectral import _bootstrap_powers, _pair_q
+from periodicity_tpu_torch.ops import _kernels
 from periodicity_tpu_torch.ops.fold import fold_onehot, fold_onehot_plain
 from periodicity_tpu_torch.ops.grid import extirpolate_grid, extirpolate_grid_plain
 from periodicity_tpu_torch.ops.grid2 import (
@@ -21,7 +24,14 @@ from periodicity_tpu_torch.ops.grid2 import (
     extirpolate_grid_factored_plain,
 )
 from periodicity_tpu_torch.phase import BLS
-from periodicity_tpu_torch.spectral import GLS, default_frequency_grid, gls_power
+from periodicity_tpu_torch.spectral import (
+    BGLST,
+    GLS,
+    MultibandGLS,
+    default_frequency_grid,
+    gls_power,
+    gls_power_batch,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -327,3 +337,135 @@ def test_bls_on_card_through_the_kernel(cuda):
     peak = float(ref.values.max())
     close = (got.values.cpu().double() - ref.values).abs() <= 1e-4 * peak
     assert float(close.double().mean()) >= 0.95
+
+
+def _batch_curves(b=3, n=3000, seed=2):
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, 100, n)).astype(np.float32)
+    ys = np.stack([np.sin(2 * np.pi * t / p) + 0.3 * rng.standard_normal(n)
+                   for p in (3.3, 7.7, 12.1, 5.5)[:b]]).astype(np.float32)
+    return t, ys, np.full((b, n), 0.3, np.float32)
+
+
+@pytest.mark.parametrize("pair_q,per_row", [(1, 2), (None, 3)])
+def test_gls_power_batch_kernel_layout(cuda, pair_q, per_row):
+    """float32 on the card: the kernel layout launches the spreading kernel
+    once per pipeline of every row, and agrees with the row spreading and
+    with a loop of scatter gls_power within 5e-5 of the peak."""
+    t, ys, errs = _batch_curves()
+    tc, yc, ec = _on(cuda, (t, ys, errs))
+    df, nf = float(np.float32(1 / 500)), 2000
+    fmin = float(np.float32(df / 2))
+    before = extirpolate_grid_factored.launches
+    got = gls_power_batch(tc, yc, ec, df, fmin, nf, pair_q=pair_q, gridder="kernel")
+    assert extirpolate_grid_factored.launches - before == per_row * len(ys)
+    rows = gls_power_batch(tc, yc, ec, df, fmin, nf, pair_q=pair_q)
+    loop = torch.stack([gls_power(tc, yc[i], ec[i], df, fmin, nf, pair_q=pair_q)
+                        for i in range(len(ys))])
+    peak = float(loop.max())
+    assert got.shape == rows.shape == (len(ys), nf) and got.dtype == torch.float32
+    assert float((got - loop).abs().max()) <= 5e-5 * peak
+    assert float((rows - loop).abs().max()) <= 5e-5 * peak
+
+
+def test_bootstrap_launches_the_kernel_twice_per_replicate(cuda):
+    """GLS.bootstrap on the card runs its replicates through the kernel
+    (two launches each); on the same indices they match the row-spreading
+    layout within 1e-4 of the largest replicate."""
+    rng = np.random.default_rng(4)
+    t = np.sort(rng.uniform(0, 100, 1000)).astype(np.float32)
+    y = (np.sin(2 * np.pi * t / 7.7) + 0.3 * rng.standard_normal(1000)).astype(np.float32)
+    gls = GLS()
+    ts = TSeries(*_on(cuda, (t, y)))
+    gls(ts)
+    before = extirpolate_grid_factored.launches
+    reps = gls.bootstrap(6, random_seed=3)
+    assert extirpolate_grid_factored.launches - before == 12
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    idx = torch.randint(0, 1000, (6, 1000), generator=gen, device=cuda)
+    f = gls.frequency
+    rows = _bootstrap_powers(idx, ts.time, ts.values, gls.err, float(f[1] - f[0]), float(f[0]),
+                             f.size, pair_q=_pair_q(f[1] - f[0], f[0], f.size))
+    assert float(np.abs(rows.cpu().numpy() - reps).max()) <= 1e-4 * reps.max()
+
+
+@pytest.mark.parametrize("n,nfft", [(200_000, 1 << 16), (400_000, 1 << 18)])
+def test_kernel_on_all_dense_tiles(cuda, n, nfft):
+    """Reduced config-14 draws: sorted bases over a fifth of the grid, so
+    every occupied 2048-cell tile holds tens of thousands of samples (the
+    ring holds 512) and takes the split-over-the-block path; both layouts."""
+    rng = np.random.default_rng(n)
+    ilo = np.sort(rng.integers(0, nfft // 5, n)).astype(np.int32)
+    _check_factored(*_on(cuda, (ilo, rng.standard_normal(n).astype(np.float32),
+                                rng.standard_normal(n).astype(np.float32),
+                                rng.standard_normal((n, 4)).astype(np.float32))), nfft)
+
+
+def test_kernel_layout_raises_on_cpu_and_never_falls_back(cuda, monkeypatch):
+    """``gridder="kernel"`` on CPU tensors raises; on the card a failed
+    launch raises instead of returning the row-spreading result."""
+    t, ys, errs = _batch_curves(b=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        gls_power_batch(*(torch.from_numpy(a) for a in (t, ys, errs)), 0.002, 0.001, 2000,
+                        gridder="kernel")
+
+    class Failing:
+        @staticmethod
+        def extirpolate_grid_factored_f32(*args):
+            return 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(_kernels, "load", lambda: Failing())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gls_power_batch(*_on(cuda, (t, ys, errs)), 0.002, 0.001, 2000, gridder="kernel")
+
+
+def _multiband(device):
+    rng = np.random.default_rng(7)
+    signals = {}
+    for s in range(3):
+        t = np.sort(rng.uniform(0, 40, 180))
+        y = ((0.0, 5.0, -4.0)[s] + (1.0, 0.7, 1.3)[s] * np.sin(2 * np.pi * t / 2.3 + 2 * s)
+             + 0.05 * rng.standard_normal(180))
+        signals[s] = TSeries(t, y, device=device)
+    mb = MultibandGLS(fmax=2.0)
+    p = mb(signals, err={s: np.full(180, 0.05) for s in range(3)})
+    return [p.values, mb.refine().values, mb.model(np.linspace(0, 40, 50), 1 / 2.3, 1).values]
+
+
+def _gls_surface(device, nterms):
+    rng = np.random.default_rng(9)
+    t = np.sort(rng.uniform(0, 60, 800))
+    y = np.sin(2 * np.pi * t / 6.2) + 0.3 * rng.standard_normal(800)
+    g = GLS(nterms=nterms)
+    p = g(TSeries(t, y, device=device), err=np.full(800, 0.3))
+    return [p.values, g.refine().values, g.window().values,
+            g.model(np.linspace(0, 60, 50), 1 / 6.2).values]
+
+
+def _bglst(device):
+    rng = np.random.default_rng(5)
+    t = np.sort(rng.uniform(0, 60, 400))
+    y = np.sin(2 * np.pi * t / 6.1) + 0.05 * t + 0.2 * rng.standard_normal(400)
+    return [BGLST(method=m)(TSeries(t, y, device=device), err=np.full(400, 0.2)).values
+            for m in ("fast", "direct")]
+
+
+@pytest.mark.parametrize("case", ["gls", "multiterm", "bglst", "multiband"])
+def test_rest_of_spectral_on_card_matches_cpu(cuda, case):
+    """float64 on the card against the port's CPU run: periodograms,
+    refinements, windows and models within 1e-9 of their largest value;
+    the multi-term periodogram also eps * cond(G) of its peak per bin
+    (its lowest bins are nearly singular, where cuFFT's rounding and the
+    CPU FFT's move the power apart)."""
+    make = {"gls": lambda d: _gls_surface(d, 1), "multiterm": lambda d: _gls_surface(d, 3),
+            "bglst": _bglst, "multiband": _multiband}[case]
+    for i, (got, ref) in enumerate(zip(make(cuda), make("cpu"))):
+        assert got.device.type == "cuda" and got.dtype == ref.dtype == torch.float64
+        scale = float(ref.abs().max())
+        tol = torch.full_like(ref, 1e-9 * scale)
+        if case == "multiterm" and i == 0:
+            rng = np.random.default_rng(9)
+            t = torch.from_numpy(np.sort(rng.uniform(0, 60, 800)))
+            freqs = torch.from_numpy(default_frequency_grid(TSeries(t, t))[0])
+            tol += torch.finfo(torch.float64).eps * gram_cond(t, torch.ones(800), freqs, 3) * scale
+        assert bool(((got.cpu() - ref).abs() <= tol).all())
