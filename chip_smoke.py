@@ -62,12 +62,31 @@ kernels, and checks every phase:
 16. the rest of the surface on the card: ``refine``, ``window``, ``model``,
    ``fap``/``fal`` by bootstrap and Baluev, ``GLS(nterms=3)``, ``BGLST``
    fast against direct and ``MultibandGLS`` fast against direct, each
-   finding its injected period.
+   finding its injected period;
+17. the recursion kernels (``csrc/recursions.cu``) against their plain
+   versions on the card, bit for bit: ``sosfilt`` in float64 over
+   SpottedStar's Butterworth pass (the GP prior's band for p_max = 32),
+   the pentadiagonal solve at m = 2146 in float64 and float32; their event,
+   device and plain times, a dense ``torch.linalg.solve`` of the same
+   system, and their bounds (bytes or the dependency chain);
+18. config 2 on SpottedStar (N = 2148, float32): ``TSeries.acf()`` then a
+   boxcar smooth, and B = 256 rows through rfft/irfft and ``convolve1d``:
+   acfs/s, device busy share, peak memory, card against CPU;
+19. the GP prior's ACF ladder (``acf_period_quality`` at every default
+   cutoff) in float64 and float32 (both through the sosfilt kernel in
+   float64, counted), card against CPU, with its wall time;
+20. the rest of the container surface once each on the card against the
+   CPU: interpolation (the smoothing spline through the pentadiagonal
+   kernel, counted), ``find_peaks`` with every criterion, zero crossings,
+   noise, Butterworth in float64 and float32, ``polyfit``, ``curvefit``,
+   ``TFSeries.downsample`` and 2-D smoothing, and the data generators.
+   Phases 18-20 are this slice's main path: the recursion kernels' counts
+   are zeroed before it and each must have launched in it.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (one GPU).
 Any failure raises and the exit code is non-zero. Phases 11-16 print
-their rates as one JSON line; the line before the last is the kernels'
-JSON record; the last line is
+their rates as one JSON line and phases 17-20 theirs as another; the line
+before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -86,6 +105,20 @@ BASELINE = 1000.0
 PERIOD = 7.7
 TAPS = 4
 TILE = 2048  # cells per step of a block of the spreading kernel
+
+
+def json_line(obj):
+    """``obj`` as one JSON line, with NaN (a time not measured) as null."""
+    def clean(x):
+        if isinstance(x, float) and math.isnan(x):
+            return None
+        if isinstance(x, dict):
+            return {k: clean(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [clean(v) for v in x]
+        return x
+
+    return json.dumps(clean(obj))
 
 
 def check(ok, what):
@@ -134,6 +167,7 @@ BLS_DURATIONS = tuple(w / BLS_NBINS for w in BLS_WIDTHS)
 BLS_BATCH = 512
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+PROFILER_PAD = 4  # untimed calls that open a profiler window
 
 
 def bound(bytes_moved, ops):
@@ -168,35 +202,66 @@ def host_us(fn, reps=200):
     return elapsed / reps * 1e6
 
 
-def device_us(fn, name, reps):
-    """Device time in microseconds per call of ``fn`` of the kernels whose
-    name holds ``name`` (every kernel for ``""``), over ``reps`` calls in
-    one profiler window. A named kernel is launched once a call, and its
-    time is the mean over the launches the window saw: the profiler has
-    been seen to miss some of a window's launches (22 of 50 once; 1 or 2
-    of 20 in every window at config 14's shape), so a window that saw
-    fewer than ``reps`` is taken again, up to three windows, and the last
-    must have seen at least half."""
+def profiled(fn, reps=1, pad=PROFILER_PAD):
+    """The device work of ``reps`` calls of ``fn`` as ``[(name, us)]`` (kernels,
+    copies and fills), and the wall seconds the calls took to a
+    synchronise, from one profiler window.
+
+    Late in a long process the profiler (torch 2.11, CUPTI, on the H100)
+    drops the first two kernel launches of every window: their runtime
+    launch calls are recorded, their kernels are not, and sleeping before or
+    after the calls does not change it. So a window opens with
+    ``pad`` untimed calls and a synchronise, the timed calls run
+    in a ``record_function`` range, and their device work is found by the
+    correlation ids of the runtime calls made in that range. Every kernel
+    launched there must be in the window; a window that misses one is taken
+    again, up to three windows, and the run fails if the last misses any."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function("chip_smoke.timed"):
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.profiler.kineto_results.events()
+        # the range is on the host; its copy on the device's timeline is no work
+        spans = [e for e in events if e.name() == "chip_smoke.timed"]
+        host = [e for e in spans if e.device_type() != DeviceType.CUDA]
+        check(len(host) == 1, f"one timed range on the host, got {len(host)}")
+        lo, hi = host[0].start_ns(), host[0].start_ns() + host[0].duration_ns()
+        calls = [e for e in events if e.device_type() != DeviceType.CUDA
+                 and e.name().startswith("cu") and lo <= e.start_ns() <= hi]
+        ids = {c.correlation_id() for c in calls}
+        work = [e for e in events if e.device_type() == DeviceType.CUDA
+                and e.correlation_id() in ids and e.name() != "chip_smoke.timed"]
+        launched = {c.correlation_id() for c in calls if "LaunchKernel" in c.name()}
+        missed = len(launched - {e.correlation_id() for e in work})
+        if not missed:
+            return [(e.name(), e.duration_ns() / 1e3) for e in work], wall
+        print(f"profiler window missed {missed} of {len(launched)} kernel launches; taken again")
+    check(False, "the profiler saw every kernel launch in one of three windows")
+
+
+def device_us(fn, name, reps):
+    """Device time in microseconds per call of ``fn`` of the kernels whose
+    name holds ``name`` (every kernel, copy and fill for ``""``), over
+    ``reps`` calls in one profiler window (:func:`profiled`). A named kernel
+    must run once a call."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and name in e.name]
-        if not name or len(times) == reps:
-            break
-        print(f"profiler window saw {len(times)} of {reps} {name} launches; taken again")
-    if not name:
-        return sum(times) / reps
-    check(2 * len(times) >= reps, f"the profiler saw {len(times)} of {reps} {name} launches")
-    return sum(times) / len(times)
+    times = [us for n, us in profiled(fn, reps)[0] if name in n]
+    check(not name or len(times) == reps, f"{name}: {len(times)} launches in {reps} calls")
+    return sum(times) / reps
 
 
 def event_ms(fn, reps):
@@ -313,22 +378,15 @@ def gls_breakdown(chained, card, k=3):
     device's idle share, from one profiler window over ``k`` chained
     periodograms through the kernel."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     chained("kernel", 1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        chained("kernel", k)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    work, wall = profiled(lambda: chained("kernel", k), pad=1)
     by_name = {}
     spread_launches = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:  # kernels, copies and fills on the card
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            spread_launches += kernel_family(e.name) == "spreading"
+    for name, us in work:  # kernels, copies and fills on the card
+        by_name[name] = by_name.get(name, 0.0) + us
+        spread_launches += kernel_family(name) == "spreading"
     busy = sum(by_name.values())
     check(busy > 0, "the profiler saw device work")
     check(spread_launches == 2 * k, f"{2 * k} spreading launches in the window, got "
@@ -569,9 +627,11 @@ def main():
     t1 = time.perf_counter()
     b1_record.update(spectral_slice(dev, card, cuda))
     t2 = time.perf_counter()
+    kernels += container_slice(dev, card, cuda)
+    t3 = time.perf_counter()
     print(f"wall time: phases 1-6 {t0 - start:.1f} s, 7-10 {t1 - t0:.1f} s, 11-16 "
-          f"{t2 - t1:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+          f"{t2 - t1:.1f} s, 17-20 {t3 - t2:.1f} s")
+    print(json_line({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -841,18 +901,10 @@ def phase_slice(dev, card, cuda):
         print(f"chained config-11 BLS scans (K=3, binner={binner}): {statistics.mean(r):.4e} "
               f"trial-periods/s, runs {[f'{v:.4e}' for v in r]}  ({card})")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        chained("kernel")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    work, wall = profiled(lambda: chained("kernel"), pad=1)
     by_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:  # kernels, copies and fills on the card
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us in work:  # kernels, copies and fills on the card
+        by_kernel[name] = by_kernel.get(name, 0.0) + us
     busy = sum(by_kernel.values())
     check(busy > 0, "the profiler saw device work")
     fold_us = sum(v for k, v in by_kernel.items() if "fold_kernel" in k)
@@ -992,20 +1044,14 @@ def pipeline_spreading_inputs(t, w1, w2, df, fmin, nfft):
 
 def profile_window(fn):
     """(device busy ms, wall ms) of one call of ``fn`` in a profiler
-    window, ending in a synchronise."""
+    window, ending in a synchronise. Each ``fn`` here launches many kernels,
+    so one untimed call opens the window."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA)
+    work, wall = profiled(fn, pad=1)
+    busy = sum(us for _, us in work)
     check(busy > 0, "the profiler saw device work")
     return busy / 1e3, wall * 1e3
 
@@ -1370,8 +1416,374 @@ def spectral_slice(dev, card, cuda):
     check(int(bad) == 0, "MultibandGLS fast vs direct")
     check(abs(best_m - 2.3) <= 0.05 * 2.3, f"MultibandGLS best period {best_m}")
 
-    print(json.dumps({"spectral": spectral}))
+    print(json_line({"spectral": spectral}))
     return record
+
+
+# the container slice (phases 17-20): SpottedStar (periodicity_tpu/data,
+# N = 2148), config 2 (benchmarks/run_benchmarks.py:70-137) and the GP
+# prior's ACF ladder, make_gaussian_prior's defaults a = 1, b = 2, n = 8
+# (periodicity_tpu/models/gp/priors.py:63-67), copied as constants
+C2_B = 256
+C2_WIDTH = 5
+LADDER = 1.0 * 2.0 ** np.arange(8)
+# dependent-operation latency of one Hopper SM in cycles (published
+# microbenchmarks of the Volta-to-Hopper SMs: 4 for a float32 add or
+# multiply, 8 for float64), and a correctly rounded division counted as 5
+# dependent operations (the reciprocal estimate and four Newton and
+# correction steps), for the recursions' chain bound
+DEP_CYCLES = {"float32": 4, "float64": 8}
+DIV_OPS = 5
+
+
+def chain_bound(bytes_moved, chain_ops, dtype, clock_hz):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and a
+    chain of ``chain_ops`` dependent operations at one operation's latency
+    (``DEP_CYCLES`` at ``clock_hz``)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_chain = chain_ops * DEP_CYCLES[dtype] / clock_hz * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain, "operations")
+
+
+def held(kernel, plain, dtype):
+    """'bit-equal' where the kernel's result equals its plain version's bit
+    for bit, else '1e-12 relative' in float64 where it is that close;
+    fails otherwise."""
+    import torch
+
+    kernel = kernel.cpu()
+    if torch.equal(kernel, plain.cpu()):
+        return "bit-equal"
+    rel = float((kernel - plain.cpu()).abs().max() / plain.abs().max())
+    check(dtype == torch.float64 and rel <= 1e-12,
+          f"kernel vs plain {rel:.3e} relative ({dtype}): neither bit-equal nor within 1e-12")
+    return "1e-12 relative"
+
+
+def plain_wall_ms(fn):
+    """Wall time of one call of a plain version on card tensors (the host
+    loop and its copies), synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def container_slice(dev, card, cuda):
+    """Phases 17-20: the recursion kernels against their plain versions,
+    config 2, the GP prior's ACF ladder and the rest of the container
+    surface on the card. Prints the ``{"containers": ...}`` line and
+    returns the recursion kernels' JSON records."""
+    import torch
+
+    from periodicity_tpu_torch import TFSeries, TSeries
+    from periodicity_tpu_torch import data as pdata
+    from periodicity_tpu_torch.ops import filters, spline
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()
+    clock_hz = float(smi[0]) * 1e6
+    start = time.perf_counter()
+    out = {"card": card, "sm_clock_max_mhz": clock_hz / 1e6}
+
+    # phase 17: the recursion kernels against their plain versions, at the
+    # shapes the slice launches them. sosfilt: the first pass of
+    # sosfiltfilt over SpottedStar's float64 odd extension, in the GP
+    # prior's band for p_max = 32 (order 5, 5 sections). The pentadiagonal
+    # solve: SpottedStar's smoothing-spline system (m = 2146) at lam = 1, the
+    # first step of the s-bisection, in float64 and float32.
+    t, y, dy = pdata.SpottedStar()
+    median_dt = float(np.median(np.diff(t)))
+    p_min = max(LADDER.min() / 10, 3 * median_dt)  # the prior's p_min
+    nyq = 0.5 / median_dt
+    sos = filters.butter_sos(5, [(1 / 32) / nyq, (1 / p_min) / nyq], "bandpass")
+    edge = filters._padlen(sos)
+    x = cuda(y)
+    ext = torch.cat([2 * x[0] - torch.flip(x[1:edge + 1], (0,)), x,
+                     2 * x[-1] - torch.flip(x[-(edge + 1):-1], (0,))])
+    zi = torch.from_numpy(filters.sosfilt_zi(sos)).to(dev) * ext[0]
+    n_ext, ns = ext.shape[0], sos.shape[0]
+    yk, zk = filters.sosfilt(sos, ext, zi)
+    yp, zp = filters.sosfilt_plain(sos, ext, zi)
+    torch.cuda.synchronize()
+    sos_held = held(torch.cat([yk, zk.reshape(-1)]), torch.cat([yp, zp.reshape(-1)]),
+                    torch.float64)
+    sos_rec = {
+        "name": "sosfilt",
+        "route": "cuda",
+        "source": "periodicity_tpu_torch/csrc/recursions.cu",
+        "replaces": "periodicity_tpu/ops/filters.py:298",
+        "shape": f"float64, {n_ext} steps (SpottedStar's odd extension), {ns} sections, 1 row",
+        "held": sos_held,
+        "max_abs_err": float((yk - yp).abs().max()),
+        "ms": event_ms(lambda: filters.sosfilt(sos, ext, zi), 20),
+        "device_ms": device_us(lambda: filters.sosfilt(sos, ext, zi), "sosfilt_kernel", 10) / 1e3,
+        "plain_ms": plain_wall_ms(lambda: filters.sosfilt_plain(sos, ext, zi)),
+        "library_ms": None,
+    }
+    # bytes: x in, y out, zi in, zf out, the coefficients in; chain: 4
+    # dependent operations a step through the state recurrence, plus the
+    # cascade's depth of 2 a section
+    sos_rec["bound_ms"], sos_rec["bound_by"] = chain_bound(
+        8 * (2 * n_ext + 4 * ns + 5 * ns), 4 * n_ext + 2 * ns, "float64", clock_hz)
+    print(f"phase 17 sosfilt f64, {n_ext} steps x {ns} sections: kernel {sos_held}; events "
+          f"{sos_rec['ms']:.4f} ms, device {sos_rec['device_ms']:.4f} ms, plain "
+          f"{sos_rec['plain_ms']:.3f} ms, bound {sos_rec['bound_ms']:.4f} ms "
+          f"({sos_rec['bound_by']})  ({card})")
+
+    (main64, off1, off2), (q0, q1, q2), _ = spline._reinsch_system(cuda(t), 1.0)
+    rhs64 = spline._qt_apply(q0, q1, q2, cuda(y))
+    m = main64.shape[0]
+    penta_rec = {
+        "name": "pentadiagonal_solve",
+        "route": "cuda",
+        "source": "periodicity_tpu_torch/csrc/recursions.cu",
+        "replaces": "periodicity_tpu/ops/spline.py:401",
+        "shape": f"m = {m} (SpottedStar's smoothing spline at lam = 1), float64; float32 "
+                 "under f32_",
+    }
+    for dtype, prefix in ((torch.float64, ""), (torch.float32, "f32_")):
+        bands = [v.to(dtype) for v in (main64, off1, off2, rhs64)]
+        xk = spline._pentadiagonal_solve(*bands)
+        xp = spline.pentadiagonal_solve_plain(*bands)
+        torch.cuda.synchronize()
+        how = held(xk, xp, dtype)
+        check(bool(torch.isfinite(xk).all()), "finite pentadiagonal solution")
+        dense = (torch.diag(bands[0]) + torch.diag(bands[1], 1) + torch.diag(bands[1], -1)
+                 + torch.diag(bands[2], 2) + torch.diag(bands[2], -2))
+        lib = torch.linalg.solve(dense, bands[3])
+        torch.cuda.synchronize()
+        rel = float((lib - xk).abs().max() / xk.abs().max())
+        check(rel <= (1e-9 if dtype == torch.float64 else 1e-3),
+              f"dense solve vs the kernel {rel:.3e} ({dtype})")
+        name = "float64" if dtype == torch.float64 else "float32"
+        rec = {
+            f"{prefix}held": how,
+            f"{prefix}max_abs_err": float((xk - xp).abs().max()),
+            f"{prefix}ms": event_ms(lambda: spline._pentadiagonal_solve(*bands), 20),
+            f"{prefix}device_ms": device_us(lambda: spline._pentadiagonal_solve(*bands),
+                                            "pentadiagonal_kernel", 10) / 1e3,
+            f"{prefix}plain_ms": plain_wall_ms(lambda: spline.pentadiagonal_solve_plain(*bands)),
+            # one torch.linalg.solve of the same system assembled dense
+            f"{prefix}library_ms": event_ms(lambda: torch.linalg.solve(dense, bands[3]), 5),
+        }
+        # bytes: the three bands and the right-hand side in, x out; chain:
+        # the factor's step (a division and 4 operations) and the backward
+        # substitution's 3 a row
+        rec[f"{prefix}bound_ms"], rec[f"{prefix}bound_by"] = chain_bound(
+            bands[0].element_size() * (4 * m - 3 + m), m * (DIV_OPS + 4 + 3), name, clock_hz)
+        penta_rec.update(rec)
+        print(f"phase 17 pentadiagonal {name}, m = {m}: kernel {how}; events "
+              f"{rec[prefix + 'ms']:.4f} ms, device {rec[prefix + 'device_ms']:.4f} ms, plain "
+              f"{rec[prefix + 'plain_ms']:.3f} ms, dense torch.linalg.solve "
+              f"{rec[prefix + 'library_ms']:.4f} ms, bound {rec[prefix + 'bound_ms']:.4f} ms "
+              f"({rec[prefix + 'bound_by']})  ({card})")
+    t17 = time.perf_counter()
+
+    # the main path of this slice: phases 18-20, counted from zero
+    filters.sosfilt.launches = 0
+    spline._pentadiagonal_solve.launches = 0
+
+    # phase 18: config 2 on SpottedStar in float32. Single series:
+    # TSeries.acf() then a width-5 boxcar; the batch: B = 256 rows through
+    # rfft/irfft with n = 2N and the port's convolve1d, as the JAX loop
+    t32, y32 = t.astype(np.float32), y.astype(np.float32)
+    n = y32.size
+    ts = TSeries(cuda(t32), cuda(y32))
+
+    def single(series):
+        return series.acf().smooth(C2_WIDTH, kernel="boxcar").values
+
+    ref = single(TSeries(t32, y32, device="cpu"))
+    got = single(ts)
+    d_single = float((got.cpu() - ref).abs().max() / ref.abs().max())
+    check(got.dtype == torch.float32 and got.shape == ref.shape, "config 2 single dtype, shape")
+    check(d_single <= 1e-5, f"config 2 single series card vs CPU {d_single:.3e} of max |r|")
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        single(ts)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) / reps * 1e3
+    busy_single, wall_single = profile_window(lambda: single(ts))
+
+    # the kernel made once, on the card, as the JAX loop keeps it a constant
+    kern = filters.boxcar_kernel1d(C2_WIDTH, dtype=torch.float32).to(dev)
+    rng = np.random.default_rng(0)
+    ys = (y[None, :] + 1e-4 * rng.standard_normal((C2_B, n))).astype(np.float32)
+
+    def batch(rows):
+        yc = rows - rows.mean(dim=1, keepdim=True)
+        ps = torch.fft.rfft(yc, n=2 * n, dim=1).abs() ** 2
+        r = torch.fft.irfft(ps, dim=1)[:, :n]
+        return filters.convolve1d(r / r[:, :1], kern)
+
+    rb = batch(cuda(ys))
+    kern = kern.cpu()
+    rb_cpu = batch(torch.from_numpy(ys))
+    kern = kern.to(dev)
+    d_batch = float((rb.cpu() - rb_cpu).abs().max() / rb_cpu.abs().max())
+    check(rb.shape == (C2_B, n) and bool(torch.isfinite(rb).all()), "config 2 batch shape")
+    check(d_batch <= 1e-5, f"config 2 batch card vs CPU {d_batch:.3e} of max |r|")
+    ysd = cuda(ys)
+
+    def chained(k=10):
+        rows = ysd
+        for _ in range(k):
+            rows = rows + batch(rows) * 1e-9
+        return rows
+
+    chained(2)
+    batch_ms = event_ms(chained, 3) / 10
+    busy_batch, wall_batch = profile_window(lambda: batch(ysd))
+    peak = peak_bytes(lambda: batch(ysd))
+    out["config2"] = {
+        "single_ms": single_ms, "single_acfs_per_s": 1e3 / single_ms,
+        "single_busy": busy_single / wall_single, "batch_ms": batch_ms,
+        "batch_acfs_per_s": C2_B / batch_ms * 1e3, "batch_busy": busy_batch / wall_batch,
+        "batch_peak_mib": peak / 2**20, "single_vs_cpu": d_single, "batch_vs_cpu": d_batch,
+    }
+    print(f"phase 18 config 2 (N = {n}, f32): single series {single_ms:.3f} ms "
+          f"({1e3 / single_ms:.1f} acfs/s, busy {busy_single / wall_single:.1%}); B = {C2_B} "
+          f"{batch_ms:.3f} ms a batch ({C2_B / batch_ms * 1e3:.4e} acfs/s, busy "
+          f"{busy_batch / wall_batch:.1%}, peak {peak / 2**20:.1f} MiB); card vs CPU "
+          f"{d_single:.2e} / {d_batch:.2e} of max |r|  ({card})")
+    t18 = time.perf_counter()
+
+    # phase 19: the GP prior's ACF ladder on SpottedStar in float64 and
+    # float32, card against CPU; both filter in float64 (as the JAX package
+    # does), through the recursion kernel, two launches a cutoff
+    cutoffs = [p for p in LADDER if p_min < p < (t[-1] - t[0]) / 2]
+    out["ladder"] = {"cutoffs": [float(p) for p in cutoffs], "p_min": p_min}
+    for dtype in (np.float64, np.float32):
+        name = np.dtype(dtype).name
+        card_ts = TSeries(cuda(t.astype(dtype)), cuda(y.astype(dtype)))
+        cpu_ts = TSeries(t.astype(dtype), y.astype(dtype), device="cpu")
+        before = filters.sosfilt.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits = [card_ts.acf_period_quality(p_min, p) for p in cutoffs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = filters.sosfilt.launches - before
+        refs = [cpu_ts.acf_period_quality(p_min, p) for p in cutoffs]
+        # the quality comes from a Nelder-Mead fit that stops once its
+        # simplex spans 1e-4 in log(amplitude) and log(tau): float64 inputs
+        # that agree to the last bits take the same path, but a float32 ACF
+        # (cuFFT against the CPU's FFT) may take another to anywhere in that
+        # box, so the float32 quality is held at 1e-3
+        q_tol = 1e-6 if dtype == np.float64 else 1e-3
+        for p, (bp, h, q), (rp, rh, rq) in zip(cutoffs, fits, refs):
+            check(bp == rp, f"ladder {name} p_max {p}: best period {bp} vs the CPU's {rp}")
+            check(abs(h - rh) <= 1e-6 * abs(rh) and abs(q - rq) <= q_tol * abs(rq),
+                  f"ladder {name} p_max {p}: height {h} vs {rh}, quality {q} vs {rq}")
+        dq = max(abs(f[2] - r[2]) / abs(r[2]) for f, r in zip(fits, refs))
+        busy, one_wall = profile_window(lambda: card_ts.acf_period_quality(p_min, 16.0))
+        check(launched == 2 * len(cutoffs),
+              f"ladder {name}: {launched} sosfilt launches")
+        out["ladder"][name] = {"wall_s": wall, "sosfilt_launches": launched,
+                               "best_periods": [f[0] for f in fits], "quality_vs_cpu": dq,
+                               "busy_p16": busy / one_wall, "wall_ms_p16": one_wall}
+        print(f"phase 19 ACF ladder {name} ({len(cutoffs)} cutoffs): {wall:.3f} s, "
+              f"{launched} sosfilt launches; best periods {[round(f[0], 4) for f in fits]} "
+              f"(equal to the CPU's), quality within {dq:.2e} of the CPU's; one cutoff "
+              f"(p_max 16) {one_wall:.1f} ms, device busy {busy / one_wall:.1%}  ({card})")
+    t19 = time.perf_counter()
+
+    # phase 20: the rest of the surface, once each on the card against the CPU
+    dev_ts = TSeries(cuda(t), cuda(y))
+    cpu_ts = TSeries(t, y, device="cpu")
+    scale = float(np.abs(y).max())
+
+    def same(a, b, what, tol=1e-9):
+        a = a if isinstance(a, (torch.Tensor, np.ndarray)) else a.values
+        b = b if isinstance(b, (torch.Tensor, np.ndarray)) else b.values
+        a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+        check(a.shape == b.shape, f"{what}: shapes {tuple(a.shape)} vs {tuple(b.shape)}")
+        ok = torch.isfinite(b)
+        d = float((a[ok] - b[ok]).abs().max()) if bool(ok.any()) else 0.0
+        check(bool((torch.isfinite(a) == ok).all()) and d <= tol * max(1.0, scale),
+              f"{what}: card vs CPU {d:.3e}")
+
+    new_t = np.linspace(t[0] - 0.5, t[-1] + 0.5, 3001)
+    for method in ("linear", "cubic", "quadratic"):
+        same(dev_ts.interp(new_t, method=method), cpu_ts.interp(new_t, method=method),
+             f"interp {method}")
+    s_val = float(np.sum(dy**2))
+    before = spline._pentadiagonal_solve.launches
+    smooth_card = dev_ts.interp(new_t, method="spline", s=s_val)
+    penta_launches = spline._pentadiagonal_solve.launches - before
+    same(smooth_card, cpu_ts.interp(new_t, method="spline", s=s_val), "interp spline s > 0",
+         tol=1e-8)
+    check(penta_launches >= 60, f"smoothing interp: {penta_launches} pentadiagonal launches")
+    crit = {"height": 0.0, "threshold": 1e-4, "distance": 5, "prominence": 1e-3, "width": 2.0}
+    pk, pk_cpu = dev_ts.find_peaks(**crit), cpu_ts.find_peaks(**crit)
+    check(torch.equal(pk.attrs["indices"].cpu(), pk_cpu.attrs["indices"]), "find_peaks indices")
+    for key in pk_cpu.attrs:
+        same(pk.attrs[key], pk_cpu.attrs[key], f"find_peaks {key}")
+    zc = dev_ts - dev_ts.mean()
+    check(torch.equal(zc.find_zero_crossings().cpu(),
+                      (cpu_ts - cpu_ts.mean()).find_zero_crossings()), "find_zero_crossings")
+    check(dev_ts.estimate_noise() == cpu_ts.estimate_noise(), "estimate_noise")
+    band = {"fmin": 1 / 16, "fmax": 1 / p_min}
+    before = filters.sosfilt.launches
+    same(dev_ts.butterworth(**band), cpu_ts.butterworth(**band), "butterworth f64 (kernel)")
+    check(filters.sosfilt.launches - before == 2, "butterworth f64: two sosfilt launches")
+    ts32 = TSeries(cuda(t32), cuda(y32))
+    before = filters.sosfilt.launches
+    check(torch.equal(ts32.butterworth(**band).values.cpu(),
+                      TSeries(t32, y32, device="cpu").butterworth(**band).values),
+          "butterworth f32 (the kernel in float64)")
+    check(filters.sosfilt.launches - before == 2, "butterworth f32: two sosfilt launches")
+    same(dev_ts.polyfit(3), cpu_ts.polyfit(3), "polyfit")
+
+    def model(tt, a, b, c):
+        return a * torch.sin(2 * math.pi * tt / b) + c
+
+    # a sinusoid on SpottedStar's times, so that the fit converges
+    yfit = 0.02 * np.sin(2 * np.pi * t / 10.7) + 0.001 * rng.standard_normal(t.size)
+    fit = TSeries(cuda(t), cuda(yfit)).curvefit(model, p0=[0.015, 10.69, 0.0])
+    fit_cpu = TSeries(t, yfit, device="cpu").curvefit(model, p0=[0.015, 10.69, 0.0])
+    check(abs(float(fit_cpu.attrs["coefficients"][1]) - 10.7) <= 0.01, "curvefit period")
+    same(fit.attrs["coefficients"], fit_cpu.attrs["coefficients"], "curvefit", tol=1e-8)
+    img = np.random.default_rng(3).standard_normal((64, 256))
+    tf = TFSeries(cuda(np.arange(256.0)), cuda(np.linspace(0.1, 2.0, 64)), cuda(img))
+    tf_cpu = TFSeries(np.arange(256.0), np.linspace(0.1, 2.0, 64), img, device="cpu")
+    for kw in ({"dt": 4.0}, {"df": 0.1}, {"dt": 8.0, "dp": 1.0}):
+        same(tf.downsample(**kw), tf_cpu.downsample(**kw), f"TFSeries.downsample {kw}")
+    for kernel in ("gaussian", "boxcar", "triangle"):
+        same(tf.smooth(3, kernel=kernel), tf_cpu.smooth(3, kernel=kernel), f"2-D smooth {kernel}")
+    gens = {
+        "BPSK": pdata.BPSK(t_bit=10, n_bits=400, f_c=0.05, n0_db=-3.0, seed=0).real,
+        "SustainedPlusGappedPureTones": pdata.SustainedPlusGappedPureTones(),
+        "GaussianAtomsPlusFMSinusoid": pdata.GaussianAtomsPlusFMSinusoid(),
+        "DuffingWave": pdata.DuffingWave(),
+    }
+    for name, gy in gens.items():
+        same(TSeries(values=cuda(gy)).acf(), TSeries(values=gy, device="cpu").acf(),
+             f"data.{name} ACF")
+    launches = {"sosfilt": filters.sosfilt.launches,
+                "pentadiagonal_solve": spline._pentadiagonal_solve.launches}
+    check(all(v > 0 for v in launches.values()), f"recursion kernels on the main path: {launches}")
+    t20 = time.perf_counter()
+    out["surface"] = {"smoothing_interp_pentadiagonal_launches": penta_launches}
+    out["main_path_launches"] = launches
+    out["wall_s"] = {"17": t17 - start, "18": t18 - t17, "19": t19 - t18, "20": t20 - t19}
+    print(f"phase 20 surface on card: interp (4 methods; smoothing: {penta_launches} "
+          f"pentadiagonal launches), find_peaks with 5 criteria, zero crossings, noise, "
+          f"butterworth f64/f32, polyfit, curvefit, TFSeries downsample and 2-D smooth, "
+          f"{len(gens)} generators: all agree with the CPU")
+    sos_rec["launches"] = launches["sosfilt"]
+    penta_rec["launches"] = launches["pentadiagonal_solve"]
+    print(json_line({"containers": out}))
+    return [sos_rec, penta_rec]
+
 
 if __name__ == "__main__":
     sys.exit(main())

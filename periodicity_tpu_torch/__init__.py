@@ -2,22 +2,26 @@
 
 The same estimator API as ``periodicity_tpu``, on torch tensors, with the
 TPU package's Pallas kernels rewritten by hand for NVIDIA Hopper. Ported
-so far: the spectral estimators (GLS with its bootstrap, FAP/FAL,
-refinement, window, model and harmonic terms; batched GLS; MultibandGLS;
-BGLST) and the phase-folding estimators (BLS, AoV, ConditionalEntropy,
-GregoryLoredo, PDM, StringLength). Non-tensor inputs land on the card unless ``device="cpu"``
-is asked for. Module layout mirrors the JAX package::
+so far: the containers (TSeries, FSeries, TFSeries) with the peak, filter,
+spline and optimizer ops under them and the bundled data; the spectral
+estimators (GLS with its bootstrap, FAP/FAL, refinement, window, model
+and harmonic terms; batched GLS; MultibandGLS; BGLST) and the
+phase-folding estimators (BLS, AoV, ConditionalEntropy, GregoryLoredo,
+PDM, StringLength). Non-tensor inputs land on the card unless
+``device="cpu"`` is asked for. Module layout mirrors the JAX package::
 
-    periodicity_tpu_torch.core       TSeries / FSeries, from_jax
+    periodicity_tpu_torch.core       TSeries / FSeries / TFSeries, from_jax
     periodicity_tpu_torch.spectral   GLS, MultibandGLS, BGLST (+ their scans)
     periodicity_tpu_torch.phase      BLS, AoV, PDM, ... (+ their scans)
-    periodicity_tpu_torch.ops        trig sums, spreading and fold kernels, peaks
+    periodicity_tpu_torch.ops        trig sums, spreading, fold and recursion
+                                     kernels, peaks, filters, splines, optimizers
+    periodicity_tpu_torch.data       bundled datasets and signal generators
 """
 
-from . import core, ops, phase, spectral
-from .core import FSeries, TSeries
+from . import core, data, ops, phase, spectral
+from .core import FSeries, TFSeries, TSeries
 
 __version__ = "0.1.0"
 name = "periodicity_tpu_torch"
 
-__all__ = ["TSeries", "FSeries", "core", "spectral", "phase", "ops"]
+__all__ = ["TSeries", "FSeries", "TFSeries", "core", "spectral", "phase", "ops", "data"]

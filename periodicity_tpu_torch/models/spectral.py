@@ -31,7 +31,7 @@ import torch
 from ..core import FSeries, TSeries, as_tensor
 from ..core.containers import nanmax
 from ..ops.trig_sum import grid_size, trig_sum, trig_sum_batch, trig_sum_batch_pair, trig_sum_pair
-from ..utils.dtypes import result_dtype
+from ..utils.dtypes import full_float32, result_dtype
 from ..utils.logging import log_event
 
 __all__ = [
@@ -141,7 +141,9 @@ def gls_power(t, y, err, df, fmin, nf, fit_mean=True, psd=False, method="fast",
             f = (fmini - fmin) + (dfi / df) * (freqs - fmin) + fmin
             ph = (2 * math.pi) * f[:, None] * t[None, :]
             dtype = torch.promote_types(ph.dtype, wi.dtype)
-            return torch.sin(ph).to(dtype) @ wi.to(dtype), torch.cos(ph).to(dtype) @ wi.to(dtype)
+            with full_float32():
+                return (torch.sin(ph).to(dtype) @ wi.to(dtype),
+                        torch.cos(ph).to(dtype) @ wi.to(dtype))
 
         Sh, Ch = ts(w * y, df, fmin)
         S2, C2 = ts(w, 2 * df, 2 * fmin)
@@ -288,7 +290,8 @@ def _normal_equations(X, w, y):
     """Weighted normal equations of the designs ``X`` [c, N, D]:
     G = X^T W X [c, D, D] and b = X^T W y [c, D]."""
     Xw = X * w[None, :, None]
-    return X.transpose(-1, -2) @ Xw, (Xw.transpose(-1, -2) @ y[:, None])[..., 0]
+    with full_float32():
+        return X.transpose(-1, -2) @ Xw, (Xw.transpose(-1, -2) @ y[:, None])[..., 0]
 
 
 def gls_power_multiterm(t, y, err, df, fmin, nf, nterms, fit_mean=True, psd=False,
@@ -796,7 +799,8 @@ class MultibandGLS:
         theta = torch.linalg.solve(G[0] + reg, b[0])
         tf = as_tensor(tf, t.device)
         Xf = design(tf, torch.full(tf.shape, s, dtype=torch.int32, device=t.device))
-        return TSeries(tf, Xf @ theta.to(Xf.dtype))
+        with full_float32():
+            return TSeries(tf, Xf @ theta.to(Xf.dtype))
 
     def refine(self, n_peaks=1, zoom=32, width=2.0):
         """Exact local refinement of the top multiband peaks: the fast
@@ -994,10 +998,11 @@ class GLS:
             return torch.stack(cols)
 
         X = design(t) / self.err
-        theta = torch.linalg.solve(X @ X.T, X @ (y / self.err))
         Xf = design(tf)
-        dtype = torch.promote_types(Xf.dtype, theta.dtype)
-        return TSeries(tf, y_mean + Xf.T.to(dtype) @ theta.to(dtype))
+        with full_float32():
+            theta = torch.linalg.solve(X @ X.T, X @ (y / self.err))
+            dtype = torch.promote_types(Xf.dtype, theta.dtype)
+            return TSeries(tf, y_mean + Xf.T.to(dtype) @ theta.to(dtype))
 
 
 def fap_baluev(t, err, z, fmax, psd=False, fit_mean=True):

@@ -1,1 +1,2 @@
-"""Numerical kernels: trig sums, the spreading kernel and its loader, peaks."""
+"""Numerical kernels: trig sums, the spreading, fold and recursion kernels and
+their loader, peaks, filters, splines and optimizers."""

@@ -43,6 +43,12 @@ ENTRY_POINTS = {
     "extirpolate_grid_f32": [_P] * 2 + [_I] * 2 + [_P] * 4,
     # t, values, offsets, freqs, n, nv, p, n_phi, stride, out, stream
     "fold_onehot_f32": [_P] * 4 + [_I] * 5 + [_P] * 2,
+    # coef (host memory), x, zi, n, ns, rows, y, zf, stream
+    "sosfilt_f32": [_P] * 3 + [_I] * 3 + [_P] * 3,
+    "sosfilt_f64": [_P] * 3 + [_I] * 3 + [_P] * 3,
+    # main, off1, off2, rhs, m, scratch, out, stream
+    "pentadiagonal_solve_f32": [_P] * 4 + [_I] + [_P] * 3,
+    "pentadiagonal_solve_f64": [_P] * 4 + [_I] + [_P] * 3,
 }
 
 _LIB = None

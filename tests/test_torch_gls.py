@@ -189,8 +189,11 @@ def test_find_peaks_matches_jax_on_periodogram():
     edged = fs.find_peaks(include_edges=True)
     ref_edged = jp.find_peaks(include_edges=True)
     np.testing.assert_array_equal(edged.attrs["indices"].numpy(), ref_edged.attrs["indices"])
-    with pytest.raises(NotImplementedError, match="A4"):
-        fs.find_peaks(height=0.1)
+    # the selection criteria are ported: they pick the same peaks as JAX's
+    high, ref_high = fs.find_peaks(height=0.1), jp.find_peaks(height=0.1)
+    np.testing.assert_array_equal(high.attrs["indices"].numpy(), ref_high.attrs["indices"])
+    np.testing.assert_array_equal(high.attrs["peak_heights"].numpy(),
+                                  ref_high.attrs["peak_heights"])
 
 
 @pytest.mark.parametrize("wlen", [None, 7])

@@ -1,6 +1,7 @@
 """The CUDA kernels (the spreading kernel through both of its entry points,
-the phase fold) against their plain versions, and the GLS, batched GLS,
-bootstrap, rest-of-spectral and BLS paths, on the card.
+the phase fold, the two recursions) against their plain versions, and the
+GLS, batched GLS, bootstrap, rest-of-spectral, BLS and container paths, on
+the card; float32 results independent of the TF32 switches.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the device and
 skips where there is none. Run on a GPU machine without the repo's
@@ -14,9 +15,10 @@ import pytest
 import torch
 
 from chip_smoke import gram_cond
-from periodicity_tpu_torch import TSeries
+from periodicity_tpu_torch import TFSeries, TSeries
+from periodicity_tpu_torch.data import SpottedStar
 from periodicity_tpu_torch.models.spectral import _bootstrap_powers, _pair_q
-from periodicity_tpu_torch.ops import _kernels
+from periodicity_tpu_torch.ops import _kernels, filters, spline
 from periodicity_tpu_torch.ops.fold import fold_onehot, fold_onehot_plain
 from periodicity_tpu_torch.ops.grid import extirpolate_grid, extirpolate_grid_plain
 from periodicity_tpu_torch.ops.grid2 import (
@@ -469,3 +471,190 @@ def test_rest_of_spectral_on_card_matches_cpu(cuda, case):
             freqs = torch.from_numpy(default_frequency_grid(TSeries(t, t))[0])
             tol += torch.finfo(torch.float64).eps * gram_cond(t, torch.ones(800), freqs, 3) * scale
         assert bool(((got.cpu() - ref).abs() <= tol).all())
+
+
+# -- the container slice: recursion kernels, C1, the surface, TF32 ------------
+
+
+def _filter_case(n, rows, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    sos = filters.butter_sos(5, [0.02, 0.4], "bandpass")
+    x = torch.from_numpy(rng.standard_normal((rows, n))).to(dtype)
+    zi = torch.from_numpy(rng.standard_normal((rows, sos.shape[0], 2))).to(dtype)
+    return sos, x, zi
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,rows", [(2214, 1), (17, 3), (1, 1), (0, 2), (9, 40)])
+def test_sosfilt_kernel_matches_plain_bit_for_bit(cuda, dtype, n, rows):
+    sos, x, zi = _filter_case(n, rows, dtype)
+    before = filters.sosfilt.launches
+    y, zf = filters.sosfilt(sos, x.to(cuda), zi.to(cuda))
+    yp, zp = filters.sosfilt_plain(sos, x, zi)
+    torch.cuda.synchronize()
+    assert filters.sosfilt.launches == before + 1
+    assert y.device.type == "cuda" and y.dtype == dtype
+    assert torch.equal(y.cpu(), yp) and torch.equal(zf.cpu(), zp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [2146, 1, 2, 3, 17])
+def test_pentadiagonal_kernel_matches_plain_bit_for_bit(cuda, dtype, m):
+    rng = np.random.default_rng(m)
+    bands = [torch.from_numpy(v).to(dtype) for v in (
+        4.0 + rng.uniform(0, 1, m), rng.uniform(-1, 1, m - 1) if m > 1 else np.zeros(0),
+        rng.uniform(-0.5, 0.5, m - 2) if m > 2 else np.zeros(0), rng.standard_normal(m))]
+    before = spline._pentadiagonal_solve.launches
+    got = spline._pentadiagonal_solve(*(b.to(cuda) for b in bands))
+    torch.cuda.synchronize()
+    assert spline._pentadiagonal_solve.launches == before + 1
+    assert torch.equal(got.cpu(), spline.pentadiagonal_solve_plain(*bands))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pentadiagonal_kernel_zero_pivot_path(cuda, dtype):
+    """JAX's guards (D == 0 makes alpha and beta 0 after it, then the
+    substitution divides by zero): the same infinities and NaNs."""
+    bands = [torch.tensor(v, dtype=dtype) for v in (
+        [0.0, 2.0, 3.0, 4.0, 0.0, 5.0], [1.0, 0.5, 0.25, 0.5, 1.0], [0.5, 0.25, 0.5, 0.1],
+        [1.0, 2.0, 3.0, 4.0, 5.0, 6.0])]
+    got = spline._pentadiagonal_solve(*(b.to(cuda) for b in bands)).cpu()
+    ref = spline.pentadiagonal_solve_plain(*bands)
+    assert not bool(torch.isfinite(ref).all())
+    assert torch.equal(got.nan_to_num(7.0), ref.nan_to_num(7.0))
+
+
+def test_recursion_wrappers_check_inputs_and_never_fall_back(cuda, monkeypatch):
+    """Mixed devices and too many sections raise on the card; a failed
+    launch raises instead of returning the plain version's result."""
+    sos, x, zi = _filter_case(50, 1, torch.float64)
+    with pytest.raises(ValueError, match="sections"):
+        filters.sosfilt(np.tile(sos, (4, 1)), x.to(cuda))
+    main = torch.ones(5, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="off1"):
+        spline._pentadiagonal_solve(main, torch.zeros(4, dtype=torch.float64),
+                                    torch.zeros(3, dtype=torch.float64, device=cuda), main)
+
+    class Failing:
+        @staticmethod
+        def sosfilt_f64(*args):
+            return 700  # cudaErrorIllegalAddress
+
+        @staticmethod
+        def pentadiagonal_solve_f64(*args):
+            return 700
+
+    monkeypatch.setattr(_kernels, "load", lambda: Failing())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        filters.sosfilt(sos, x.to(cuda), zi.to(cuda))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        spline._pentadiagonal_solve(main, main[:4] * 0, main[:3] * 0, main)
+
+
+@pytest.mark.parametrize("estimator", ["GLS", "BGLST", "MultibandGLS", "BLS"])
+def test_container_as_err_on_card_matches_cpu(cuda, estimator):
+    """C1 on the card: ``err`` (and ``bands``) as a CUDA TSeries unwraps to
+    its values, and the result equals the CPU run's within 1e-9 of peak."""
+    rng = np.random.default_rng(0)
+    t = np.sort(rng.uniform(0, 60, 300))
+    y = np.sin(2 * np.pi * t / 7.7) + 0.3 * rng.standard_normal(300)
+    e = rng.uniform(0.2, 0.4, 300)
+    b = (np.arange(300) % 3).astype(np.int64)
+
+    def run(dev):
+        ts = TSeries(t, y, device=dev)
+        err = TSeries(t, e, device=dev)
+        if estimator == "MultibandGLS":
+            return MultibandGLS(fmax=2.0)(ts, err=err, bands=TSeries(t, b, device=dev)).values
+        if estimator == "BLS":
+            # one binner on both devices: "auto" folds in float32 by the
+            # kernel on the card and scatters in float64 on the CPU
+            return BLS(n_periods=500, binner="scatter")(ts, err=err).values
+        return {"GLS": GLS, "BGLST": BGLST}[estimator]()(ts, err=err).values
+
+    got, ref = run(cuda), run("cpu")
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - ref).abs().max()) <= 1e-9 * float(ref.abs().max())
+
+
+def test_sosfiltfilt_float32_on_card_runs_the_kernel_in_float64(cuda):
+    """A float32 series is filtered in float64 on the card (two launches)
+    and cast back, bit-equal to the CPU's float64 recursion."""
+    sos = filters.butter_sos(5, [0.05, 0.3], "bandpass")
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(600).astype(np.float32))
+    before = filters.sosfilt.launches
+    got = filters.sosfiltfilt(sos, x.to(cuda))
+    assert filters.sosfilt.launches == before + 2
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), filters.sosfiltfilt(sos, x))
+
+
+def test_container_surface_on_card_matches_cpu(cuda):
+    """acf_period_quality (float64: the sosfilt kernel, counted), the
+    smoothing interpolation (the pentadiagonal kernel, counted), every
+    interpolation method, find_peaks with criteria and TFSeries reductions
+    on the card against the CPU."""
+    t, y, _ = SpottedStar()
+    p_min = max(0.1, 3 * float(np.median(np.diff(t))))
+    card, cpu = TSeries(t, y, device=cuda), TSeries(t, y, device="cpu")
+    before = filters.sosfilt.launches
+    got = card.acf_period_quality(p_min, 16.0)
+    ref = cpu.acf_period_quality(p_min, 16.0)
+    assert filters.sosfilt.launches == before + 2
+    assert got[0] == ref[0] and np.allclose(got[1:], ref[1:], rtol=1e-6, atol=0)
+    x = np.linspace(t[0] - 1, t[-1] + 1, 1000)
+    before = spline._pentadiagonal_solve.launches
+    for method, kw in (("linear", {}), ("cubic", {}), ("quadratic", {}), ("spline", {}),
+                       ("spline", {"s": 0.1}), ("nearest", {}), ("zero", {})):
+        a = card.interp(x, method=method, **kw).values.cpu()
+        b = cpu.interp(x, method=method, **kw).values
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert float((a - b).nan_to_num().abs().max()) <= 1e-8
+    assert spline._pentadiagonal_solve.launches - before >= 60
+    crit = {"distance": 5, "width": 2.0, "prominence": 1e-3, "threshold": 1e-4}
+    pk, pk_ref = card.find_peaks(**crit), cpu.find_peaks(**crit)
+    assert torch.equal(pk.attrs["indices"].cpu(), pk_ref.attrs["indices"])
+    assert torch.allclose(pk.attrs["widths"].cpu(), pk_ref.attrs["widths"], rtol=1e-10)
+    img = np.random.default_rng(2).standard_normal((16, 64))
+    tf = TFSeries(np.arange(64.0), np.linspace(0.1, 1.0, 16), img, device=cuda)
+    tf_ref = TFSeries(np.arange(64.0), np.linspace(0.1, 1.0, 16), img, device="cpu")
+    assert torch.allclose(tf.downsample(dt=4.0).values.cpu(), tf_ref.downsample(dt=4.0).values)
+    assert torch.allclose(tf.median("time").values.cpu(), tf_ref.median("time").values)
+
+
+def test_float32_results_do_not_depend_on_tf32_switches(cuda):
+    """With both process-wide TF32 switches on, the port's float32
+    convolutions and matrix products give the same bits as with the switches
+    off (TF32's 10-bit mantissa would move them by ~1e-3), while a raw
+    float32 product does move."""
+    from periodicity_tpu_torch.models.spectral import _normal_equations
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((8, 2048)).astype(np.float32)).to(cuda)
+    img = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)).to(cuda)
+    t = np.sort(rng.uniform(0, 50, 600)).astype(np.float32)
+    yv = (np.sin(2 * np.pi * t / 5.0) + 0.2 * rng.standard_normal(600)).astype(np.float32)
+    X = torch.from_numpy(rng.standard_normal((4, 600, 5)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, 600).astype(np.float32)).to(cuda)
+    A = torch.from_numpy(rng.standard_normal((256, 512)).astype(np.float32)).to(cuda)
+
+    def run():
+        return [filters.convolve1d(x, filters.gaussian_kernel1d(3.0, dtype=torch.float32)),
+                filters.convolve2d(img, torch.ones(5, 5, device=cuda) / 25),
+                GLS(method="direct")(TSeries(t, yv, device=cuda)).values,
+                *_normal_equations(X, w, torch.from_numpy(yv).to(cuda)),
+                A @ A.T]  # a raw product, unpinned
+
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        off = run()
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        on = run()
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    diffs = [float((a - b).abs().max() / a.abs().max()) for a, b in zip(off, on)]
+    assert all(a.dtype == torch.float32 for a in off)
+    assert all(torch.equal(a, b) for a, b in zip(off[:-1], on[:-1])), diffs
+    assert diffs[-1] > 1e-6, diffs  # the switches do reach an unpinned product
