@@ -82,10 +82,29 @@ kernels, and checks every phase:
    ``TFSeries.downsample`` and 2-D smoothing, and the data generators.
    Phases 18-20 are this slice's main path: the recursion kernels' counts
    are zeroed before it and each must have launched in it.
+21. the EMD sift kernel (``csrc/sift.cu``) against its plain version on the
+   card, bit for bit (modes, residue, mode counts, sift counts, the last
+   sifted series): config 10's noise pre-decomposition (50 realizations,
+   N = 1024, float64, 12 mode slots) and first ensemble stage, config 9's
+   sift shape (N = 2048, float32, 4 modes, B = 8, 32, 64), and edge draws
+   (too short, monotonic, plateaus, pad widths 1 and 3, max_iter reached,
+   the Thomas size, float64 at N = 2048 in global scratch) in both dtypes;
+   events and profiler times, the plain version's wall time, the bound;
+22. config 10 on the card: ``CEEMDAN(ensemble_size=50, random_seed=42)``
+   over 3 perturbed inputs (seconds per decomposition, n_modes, sift
+   launches, busy share, peak memory) against the CPU port within 1e-9 of
+   max|x|; then ``EMD``, ``LMD`` (first product function, with its device
+   operations and host reads) and ``VMD(n_modes=3)`` on the card against
+   the CPU. Phase 22 is this slice's main path: the sift kernel's count is
+   zeroed before it and must be non-zero after it;
+23. two cells of earlier slices: config 4 (PDM, StringLength and its fast
+   variant, N = 2000, 1e5 periods, float32) and config 6's batch curve
+   (B = 4, 8, 16, both layouts, with peak memory).
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (one GPU).
 Any failure raises and the exit code is non-zero. Phases 11-16 print
-their rates as one JSON line and phases 17-20 theirs as another; the line
+their rates as one JSON line, phases 17-20 theirs as another, phases 21-22
+a ``{"decomposition": ...}`` line and phase 23 a ``{"cells": ...}`` line; the line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -629,8 +648,12 @@ def main():
     t2 = time.perf_counter()
     kernels += container_slice(dev, card, cuda)
     t3 = time.perf_counter()
+    kernels += decomposition_slice(dev, card, cuda)
+    t4 = time.perf_counter()
+    extra_cells(dev, card, cuda)
+    t5 = time.perf_counter()
     print(f"wall time: phases 1-6 {t0 - start:.1f} s, 7-10 {t1 - t0:.1f} s, 11-16 "
-          f"{t2 - t1:.1f} s, 17-20 {t3 - t2:.1f} s")
+          f"{t2 - t1:.1f} s, 17-20 {t3 - t2:.1f} s, 21-22 {t4 - t3:.1f} s, 23 {t5 - t4:.1f} s")
     print(json_line({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -1436,6 +1459,15 @@ DEP_CYCLES = {"float32": 4, "float64": 8}
 DIV_OPS = 5
 
 
+def sm_clock_hz():
+    """The card's maximum SM clock, from nvidia-smi."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()
+    return float(smi[0]) * 1e6
+
+
 def chain_bound(bytes_moved, chain_ops, dtype, clock_hz):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and a
     chain of ``chain_ops`` dependent operations at one operation's latency
@@ -1483,11 +1515,7 @@ def container_slice(dev, card, cuda):
     from periodicity_tpu_torch import data as pdata
     from periodicity_tpu_torch.ops import filters, spline
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.split()
-    clock_hz = float(smi[0]) * 1e6
+    clock_hz = sm_clock_hz()
     start = time.perf_counter()
     out = {"card": card, "sm_clock_max_mhz": clock_hz / 1e6}
 
@@ -1783,6 +1811,382 @@ def container_slice(dev, card, cuda):
     penta_rec["launches"] = launches["pentadiagonal_solve"]
     print(json_line({"containers": out}))
     return [sos_rec, penta_rec]
+
+# the decomposition slice (phases 21-23): config 10 (CEEMDAN, N = 1024,
+# E = 50, benchmarks/run_benchmarks.py:575-610), config 9's sift shape
+# (N = 2048 float32, B = 8, 32, 64, max_modes = 4, :519-530), config 4
+# (:203-257) and config 6's batch curve
+C10_N, C10_E, C10_SEED = 1024, 50, 42
+C9_N, C9_MODES = 2048, 4
+SIFT_THREADS = 512  # threads of a block of the sift kernel (csrc/sift.cu)
+
+
+def c10_signal():
+    """Config 10's two tones on linspace(0, 2, 1024) and its perturbation
+    generator (run_benchmarks.py:586-598)."""
+    t = np.linspace(0.0, 2.0, C10_N)
+    return np.sin(2 * np.pi * 40.0 * t) + 0.6 * np.sin(2 * np.pi * 5.0 * t), \
+        np.random.default_rng(0)
+
+
+def c9_series():
+    """Config 9's batches, drawn in the script's order from one generator."""
+    t = np.linspace(0.0, 20.0, C9_N).astype(np.float32)
+    rng = np.random.default_rng(0)
+
+    def series(b):
+        return np.stack([np.sin(2 * np.pi * t * f) + 0.4 * np.sin(2 * np.pi * t * f / 6.0)
+                         + 0.05 * rng.standard_normal(C9_N)
+                         for f in np.linspace(2.0, 4.0, b)]).astype(np.float32)
+
+    return t, {b: series(b) for b in (8, 32, 64)}
+
+
+def sift_chain_ops(n, pad_width):
+    """Dependent operations of one sift on the kernel's critical path: two
+    block scans (each thread's chunk, 5 warp and 5 cross-warp levels, the
+    offset), the extrema flags and knots, the boundary row (two divisions),
+    the PCR levels (a division and 3 operations each) or the Thomas
+    recursion (two passes over K), the final division, the Hermite
+    evaluation with mu and sigma (two divisions), the block reduction of
+    the counts (5 shuffles, 16 warp sums) and the update."""
+    k = n // 2 + 4 + 2 * pad_width
+    per = -(-n // SIFT_THREADS)
+    scans = 2 * (per + 12)
+    if k >= 32:
+        solve = math.ceil(math.log2(k)) * (DIV_OPS + 3) + DIV_OPS
+    else:
+        solve = k * (2 * DIV_OPS + 2) + 2 * k
+    return scans + 5 + (2 * DIV_OPS + 6) + solve + (2 * DIV_OPS + 12) + 21 + 2
+
+
+def sift_bound(n, b, kmode, units, pad_width, dtype, clock_hz):
+    """(bound_ms, bound_by) of one sift-kernel launch: t and the series
+    read once, the accepted modes, residue and final series written once,
+    against the longest member's chain of dependent sifts."""
+    elem = 8 if dtype == "float64" else 4
+    bytes_moved = elem * (n + b * n + int(kmode.sum()) * n + 2 * b * n) + 8 * b
+    return chain_bound(bytes_moved, int(units.max()) * sift_chain_ops(n, pad_width), dtype,
+                       clock_hz)
+
+
+def decomposition_slice(dev, card, cuda):
+    """Phases 21-22: the sift kernel against its plain version, and the
+    decompositions on the card (config 10's CEEMDAN, EMD, LMD, VMD) against
+    the CPU. Prints the ``{"decomposition": ...}`` line and returns the
+    sift kernel's JSON record."""
+    import torch
+
+    from periodicity_tpu_torch import TSeries
+    from periodicity_tpu_torch.decomposition import CEEMDAN, EMD, LMD, VMD
+    from periodicity_tpu_torch.ops import emd, lmd
+
+    clock_hz = sm_clock_hz()
+    start = time.perf_counter()
+    out = {"card": card, "sm_clock_max_mhz": clock_hz / 1e6}
+
+    def both(t, Y, **kw):
+        """The kernel and the plain version on the same card tensors, bit
+        for bit, with the kernel's outputs."""
+        got = emd.sift_machine(t, Y, **kw)
+        want = emd.sift_machine_plain(t, Y, **kw)
+        torch.cuda.synchronize()
+        names = ("modes", "residue", "kmode", "units", "cur")
+        for name, a, b in zip(names, got, want):
+            check(torch.equal(a, b), f"sift kernel vs plain, {name} not bit-equal "
+                  f"(B={Y.shape[0]}, N={Y.shape[1]}, {Y.dtype}, {kw})")
+        return got
+
+    # phase 21: S1 against plain. Config 10's noise pre-decomposition:
+    # E = 50 realizations of default_rng(42) noise, N = 1024, float64, 12
+    # mode slots (log2(N) + 2)
+    base, _ = c10_signal()
+    t10 = cuda(np.arange(float(C10_N)))
+    noise = cuda(np.random.default_rng(C10_SEED).standard_normal((C10_E, C10_N)))
+    cap = int(np.log2(C10_N)) + 2
+    pre = both(t10, noise, max_modes=cap)
+    rec = {
+        "name": "emd_sift",
+        "route": "cuda",
+        "source": "periodicity_tpu_torch/csrc/sift.cu",
+        "replaces": "periodicity_tpu/ops/emd.py:238",
+        "held": "bit-equal",
+        "max_abs_err": 0.0,
+        "library_ms": None,
+    }
+    kmode, units = pre[2].cpu().numpy(), pre[3].cpu().numpy()
+    run_pre = lambda: emd.sift_machine(t10, noise, max_modes=cap)  # noqa: E731
+    rec["predecomp_units_max"], rec["predecomp_units_sum"] = int(units.max()), int(units.sum())
+    rec["predecomp_ms"] = event_ms(run_pre, 3)
+    rec["predecomp_device_ms"] = device_us(run_pre, "emd_sift_kernel", 2) / 1e3
+    rec["predecomp_bound_ms"], rec["predecomp_bound_by"] = sift_bound(
+        C10_N, C10_E, kmode, units, 2, "float64", clock_hz)
+    print(f"phase 21 S1, config 10 noise pre-decomposition (E={C10_E}, N={C10_N}, f64, "
+          f"{cap} slots): bit-equal to plain; modes {int(kmode.min())}-{int(kmode.max())}, sifts "
+          f"max {rec['predecomp_units_max']} sum {rec['predecomp_units_sum']}; events "
+          f"{rec['predecomp_ms']:.3f} ms, device {rec['predecomp_device_ms']:.3f} ms, bound "
+          f"{rec['predecomp_bound_ms']:.3f} ms ({rec['predecomp_bound_by']})  ({card})")
+
+    # config 10's first ensemble stage (CEEMDAN's k = 0 noisy residues, one
+    # IMF each): the kernel against the plain version's wall time
+    sig = TSeries(t10, cuda(base))
+    sigma_x = float(np.std(sig))
+    rv = (sig / sigma_x).values
+    noise0 = pre[0][:, 0, :]
+    has0 = (pre[2] > 0)[:, None]
+    beta = 0.2 * torch.std(rv, correction=0) / torch.where(
+        (s0 := torch.std(noise0, dim=1, keepdim=True, correction=0)) > 0, s0, 1.0)
+    stage0 = (rv[None, :] + torch.where(has0, beta * noise0, 0.0)).contiguous()
+    got0 = both(t10, stage0, max_modes=1)
+    kmode0, units0 = got0[2].cpu().numpy(), got0[3].cpu().numpy()
+    run0 = lambda: emd.sift_machine(t10, stage0, max_modes=1)  # noqa: E731
+    rec["shape"] = (f"config 10's first ensemble stage: E = {C10_E}, N = {C10_N}, float64, one "
+                    "IMF each; predecomp_ the noise pre-decomposition (12 slots), c9_ config "
+                    "9's sift shape (N = 2048, float32, 4 modes)")
+    rec["units_max"], rec["units_sum"] = int(units0.max()), int(units0.sum())
+    rec["ms"] = event_ms(run0, 5)
+    rec["device_ms"] = device_us(run0, "emd_sift_kernel", 3) / 1e3
+    rec["plain_ms"] = plain_wall_ms(lambda: emd.sift_machine_plain(t10, stage0, max_modes=1))
+    rec["bound_ms"], rec["bound_by"] = sift_bound(C10_N, C10_E, kmode0, units0, 2, "float64",
+                                                  clock_hz)
+    print(f"phase 21 S1, config 10 first stage (E={C10_E}, one IMF): bit-equal; sifts max "
+          f"{rec['units_max']} sum {rec['units_sum']}; events {rec['ms']:.3f} ms, device "
+          f"{rec['device_ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  ({card})")
+
+    # config 9's sift shape: N = 2048, float32, 4 modes, B = 8, 32, 64
+    t9, c9 = c9_series()
+    t9c = cuda(t9)
+    for b, ys in c9.items():
+        Y = cuda(ys)
+        got = both(t9c, Y, max_modes=C9_MODES)
+        km, un = got[2].cpu().numpy(), got[3].cpu().numpy()
+        run9 = lambda: emd.sift_machine(t9c, Y, max_modes=C9_MODES)  # noqa: E731
+        ms = event_ms(run9, 5)
+        dev_ms = device_us(run9, "emd_sift_kernel", 3) / 1e3
+        bnd, by = sift_bound(C9_N, b, km, un, 2, "float32", clock_hz)
+        rec.update({f"c9_b{b}_ms": ms, f"c9_b{b}_device_ms": dev_ms, f"c9_b{b}_bound_ms": bnd,
+                    f"c9_b{b}_bound_by": by, f"c9_b{b}_units_max": int(un.max()),
+                    f"c9_b{b}_units_sum": int(un.sum())})
+        print(f"phase 21 S1, config 9 sift shape B={b} (N={C9_N}, f32, {C9_MODES} modes): "
+              f"bit-equal; sifts max {int(un.max())} sum {int(un.sum())}; events {ms:.3f} ms, "
+              f"device {dev_ms:.3f} ms, bound {bnd:.4f} ms ({by})  ({card})")
+
+    # edge draws: too short to sift, monotonic, plateaus, pad widths 1 and
+    # 3, max_iter reached, the Thomas size (K < 32), and float64 at N = 2048,
+    # above the shared-memory line (global scratch)
+    rng = np.random.default_rng(21)
+    tt = np.arange(200.0)
+    wavy = np.sin(tt[None] / np.array([[4.0], [7.0]])) + 0.3 * rng.standard_normal((2, 200))
+    edges = [
+        ("short", np.arange(3.0), np.ones((2, 3)), {}),
+        ("ramp", tt, np.stack([np.linspace(0, 1, 200), np.linspace(0, 1, 200) ** 2]), {}),
+        ("plateau", tt, np.stack([np.round(3 * np.sin(tt / 5.0)),
+                                  np.round(2 * np.sin(tt / 3.0) + np.cos(tt / 11.0))]), {}),
+        ("pad 1", tt, wavy, {"pad_width": 1}),
+        ("pad 3", tt, wavy, {"pad_width": 3}),
+        ("max_iter 3", tt, wavy, {"max_iter": 3}),
+        ("Thomas, N = 20", np.arange(20.0), rng.standard_normal((3, 20)), {}),
+        ("global scratch, N = 2048", np.arange(2048.0), rng.standard_normal((2, 2048)), {}),
+    ]
+    for dtype in (torch.float64, torch.float32):
+        for label, te, ye, kw in edges:
+            both(cuda(te).to(dtype), cuda(ye).to(dtype), max_modes=3, **kw)
+    print(f"phase 21 S1 edge draws ({', '.join(e[0] for e in edges)}), float64 and float32: "
+          f"bit-equal to plain")
+    t21 = time.perf_counter()
+
+    # the main path of this slice: phase 22, counted from zero
+    emd.sift_machine.launches = 0
+    lmd_reads = lmd.host_reads
+
+    # phase 22: config 10, CEEMDAN(ensemble_size=50, random_seed=42) on
+    # the two tones (float64 on the card), timed over 3 perturbed inputs
+    base, prng = c10_signal()
+
+    def ceemdan(y, device=None):
+        dec = CEEMDAN(ensemble_size=C10_E, random_seed=C10_SEED)
+        dec(TSeries(values=y, device=device))
+        return dec
+
+    ceemdan(cuda(base))
+    torch.cuda.synchronize()
+    secs, decs, inputs = [], [], []
+    for i in range(3):
+        yi = base + 1e-4 * (i + 1) * prng.standard_normal(C10_N)
+        inputs.append(yi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decs.append(ceemdan(cuda(yi)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    before = emd.sift_machine.launches
+    ceemdan(cuda(inputs[0]))
+    launches_per = emd.sift_machine.launches - before
+    work, wall = profiled(lambda: ceemdan(cuda(inputs[0])), pad=1)
+    wall *= 1e3
+    busy = sum(us for _, us in work) / 1e3
+    sift_ms = sum(us for name, us in work if "emd_sift_kernel" in name) / 1e3
+    check(busy > 0 and sift_ms > 0, "the profiler saw the sift kernel")
+    mem = peak_bytes(lambda: ceemdan(cuda(inputs[0])))
+    t_cpu = time.perf_counter()
+    cpu = ceemdan(inputs[0], device="cpu")
+    cpu_s = time.perf_counter() - t_cpu
+    card_dec = decs[0]
+    scale = float(np.abs(inputs[0]).max())
+    check(card_dec.n_modes == cpu.n_modes, f"CEEMDAN n_modes card {card_dec.n_modes} vs CPU "
+          f"{cpu.n_modes}")
+    d_modes = max(float((a.values.cpu() - b.values).abs().max())
+                  for a, b in zip(card_dec.modes + [card_dec.residue], cpu.modes + [cpu.residue]))
+    check(d_modes <= 1e-9 * scale, f"CEEMDAN card vs CPU {d_modes:.3e} > 1e-9 of max|x|")
+    for dec, yi in zip(decs, inputs):
+        m = [x.values.cpu().numpy() for x in dec.modes]
+        check(all(np.isfinite(x).all() and x.shape == (C10_N,) for x in m),
+              "CEEMDAN modes finite, [N]")
+        err = np.linalg.norm(sum(m) + dec.residue.values.cpu().numpy() - yi) / np.linalg.norm(yi)
+        check(err < 1e-10, f"CEEMDAN modes + residue reconstruct the input ({err:.2e})")
+    out["config10"] = {
+        "seconds_per_decomposition": statistics.median(secs),
+        "seconds_runs": secs,
+        "n_modes": [d.n_modes for d in decs],
+        "sift_launches_per_decomposition": launches_per,
+        "busy_ms": busy,
+        "wall_ms": wall,
+        "busy_share": busy / wall,
+        "sift_device_ms": sift_ms,
+        "other_device_ms": busy - sift_ms,
+        "other_device_ops": sum(1 for name, _ in work if "emd_sift_kernel" not in name),
+        "peak_mib": mem / 2**20,
+        "cpu_port_seconds": cpu_s,
+        "card_vs_cpu_max_abs": d_modes,
+    }
+    print(f"phase 22 config 10 CEEMDAN (N={C10_N}, E={C10_E}, f64): "
+          f"{statistics.median(secs):.4f} s per decomposition (median of "
+          f"{[round(x, 4) for x in secs]}), n_modes {[d.n_modes for d in decs]}, "
+          f"{launches_per} sift launches each; device busy {busy:.2f} ms of {wall:.2f} ms "
+          f"({busy / wall:.1%}; the sift kernel {sift_ms:.2f} ms, "
+          f"{out['config10']['other_device_ops']} other device ops "
+          f"{busy - sift_ms:.2f} ms); peak memory {mem / 2**20:.2f} MiB; card vs CPU port "
+          f"{d_modes:.3e} (CPU {cpu_s:.1f} s)  ({card})")
+
+    # EMD, LMD (uniform two tones) and VMD(n_modes=3) once each, card
+    # against the CPU; LMD's launches and host reads counted
+    tl = np.arange(1000.0)
+    y2 = np.sin(2 * np.pi * 0.01 * tl) + 0.4 * np.sin(2 * np.pi * 0.1 * tl)
+    rows = {}
+
+    def wall_of(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    imfs, rows["emd_s"] = wall_of(lambda: EMD()(TSeries(cuda(tl), cuda(y2))))
+    imfs_cpu = EMD()(TSeries(tl, y2, device="cpu"))
+    check(len(imfs) == len(imfs_cpu) >= 2, f"EMD modes card {len(imfs)} vs CPU {len(imfs_cpu)}")
+    d = max(float((a.values.cpu() - b.values).abs().max()) for a, b in zip(imfs, imfs_cpu))
+    check(d <= 1e-9 * 1.4, f"EMD card vs CPU {d:.3e}")
+    reads0 = lmd.host_reads
+    pfs, rows["lmd_s"] = wall_of(lambda: LMD()(TSeries(cuda(tl), cuda(y2)), max_modes=1))
+    rows["lmd_host_reads"] = lmd.host_reads - reads0
+    work, _ = profiled(lambda: LMD()(TSeries(cuda(tl), cuda(y2)), max_modes=1), pad=1)
+    rows["lmd_device_ops"] = len(work)
+    pfs_cpu = LMD()(TSeries(tl, y2, device="cpu"), max_modes=1)
+    d_l = float(((pfs[0][0] * pfs[0][1]).values.cpu() - (pfs_cpu[0][0] * pfs_cpu[0][1]).values)
+                .abs().max())
+    check(len(pfs) == len(pfs_cpu) == 1 and d_l <= 1e-9, f"LMD first product function card vs "
+          f"CPU {d_l:.3e}")
+    modes, rows["vmd_s"] = wall_of(lambda: VMD(n_modes=3)(TSeries(cuda(tl), cuda(y2))))
+    modes_cpu = VMD(n_modes=3)(TSeries(tl, y2, device="cpu"))
+    d_v = max(float((a.values.cpu() - b.values).abs().max()) for a, b in zip(modes, modes_cpu))
+    check(len(modes) == 3 and d_v <= 1e-9, f"VMD card vs CPU {d_v:.3e}")
+    launches = emd.sift_machine.launches
+    check(launches > 0, "the sift kernel launched on the main path")
+    out["surface"] = dict(rows, emd_modes=len(imfs), emd_vs_cpu=d, lmd_vs_cpu=d_l, vmd_vs_cpu=d_v)
+    out["main_path_launches"] = {"emd_sift": launches}
+    out["lmd_host_reads_total"] = lmd.host_reads - lmd_reads
+    t22 = time.perf_counter()
+    out["wall_s"] = {"21": t21 - start, "22": t22 - t21}
+    rec["launches"] = launches
+    print(f"phase 22 EMD {rows['emd_s']:.3f} s ({len(imfs)} modes), LMD first PF "
+          f"{rows['lmd_s']:.3f} s ({rows['lmd_device_ops']} device ops, "
+          f"{rows['lmd_host_reads']} host reads), VMD(3) {rows['vmd_s']:.3f} s on the card: "
+          f"all agree with the CPU; {launches} sift launches on the main path  ({card})")
+    print(json_line({"decomposition": out}))
+    return [rec]
+
+
+def extra_cells(dev, card, cuda):
+    """Phase 23: two cells of code ported earlier, timed here: config 4
+    (PDM, StringLength and its fast variant at N = 2000 over 1e5 trial
+    periods, float32) and config 6's batch curve at B = 4, 8 and 16 in both
+    layouts. Prints the ``{"cells": ...}`` line."""
+    import torch
+
+    from periodicity_tpu_torch.models.phase import pdm_scan, string_length_scan, \
+        string_length_scan_fast
+    from periodicity_tpu_torch.spectral import gls_power_batch
+
+    start = time.perf_counter()
+    out = {"card": card}
+    n4, p4 = 2000, 100_000
+    rng = np.random.default_rng(0)
+    t4 = np.sort(rng.uniform(0, 200.0, n4)).astype(np.float32)
+    y4 = (np.sin(2 * np.pi * t4 / 7.7) + 0.2 * rng.standard_normal(n4)).astype(np.float32)
+    periods = cuda(np.linspace(0.5, 100.0, p4).astype(np.float32))
+    t4c, y4c = cuda(t4), cuda(y4)
+    scans = {
+        "pdm": lambda: pdm_scan(t4c, y4c, periods, batch_size=512),
+        "stringlength": lambda: string_length_scan(t4c, y4c, periods, batch_size=512),
+        "stringlength_fast": lambda: string_length_scan_fast(t4c, y4c, periods, batch_size=512),
+    }
+    config4 = {}
+    for name, fn in scans.items():
+        first = fn()
+        torch.cuda.synchronize()
+        check(first.shape == (p4,) and bool(torch.isfinite(first).all()), f"{name}: finite [P]")
+        best = float(periods[torch.argmin(first)])
+        # a fold at a multiple of the period is as ordered as at the period
+        check(abs(best / PERIOD - round(best / PERIOD)) <= 0.005 * round(best / PERIOD),
+              f"{name}: best period {best} not a multiple of {PERIOD}")
+        ms = event_ms(fn, 2)
+        config4[f"{name}_s"] = ms / 1e3
+        config4[f"{name}_periods_per_s"] = p4 / (ms / 1e3)
+        config4[f"{name}_best_period"] = best
+        print(f"phase 23 config 4 {name} (N={n4}, {p4} periods, f32): {ms:.2f} ms, "
+              f"{p4 / (ms / 1e3):.4e} trial periods/s, best period {best:.4f}  ({card})")
+    out["config4"] = config4
+
+    rng = np.random.default_rng(0)
+    t6 = np.sort(rng.uniform(0, 1000.0, C6_N)).astype(np.float32)
+    df6 = float(np.float32(0.5 / 1000.0))
+    fmin6 = float(np.float32(df6 / 2))
+    t6c = cuda(t6)
+    curve = {}
+    for b in (4, 8, 16):
+        ys = cuda(np.stack([np.sin(2 * np.pi * t6 / p) for p in C6_PERIODS[:b]])
+                  .astype(np.float32))
+        es = cuda(np.full((b, C6_N), 0.3, np.float32))
+        for layout in ("kernel", "scatter"):
+            def batch():
+                return gls_power_batch(t6c, ys, es, df6, fmin6, C6_NF, pair_q=1, gridder=layout)
+
+            pw = batch()
+            torch.cuda.synchronize()
+            check(pw.shape == (b, C6_NF) and bool(torch.isfinite(pw).all()),
+                  f"config 6 B={b} {layout}: finite [B, nf]")
+            ms = event_ms(batch, 2)
+            mem = peak_bytes(batch)
+            key = f"b{b}_{'kernel_loop' if layout == 'kernel' else 'row_spreading'}"
+            curve[f"{key}_freqs_per_s"] = b * C6_NF / (ms / 1e3)
+            curve[f"{key}_peak_mib"] = mem / 2**20
+            print(f"phase 23 config 6 B={b} {layout}: {b * C6_NF / (ms / 1e3):.4e} aggregate "
+                  f"trial-freqs/s, peak memory {mem / 2**20:.1f} MiB  ({card})")
+        del ys, es
+    out["config6_curve"] = curve
+    out["wall_s"] = time.perf_counter() - start
+    print(json_line({"cells": out}))
 
 
 if __name__ == "__main__":

@@ -40,6 +40,8 @@
 
 #include <cuda_runtime.h>
 
+#include "rn.cuh"
+
 namespace {
 
 constexpr int kMaxSections = 16;
@@ -53,24 +55,7 @@ struct Coefficients {
 constexpr int kChunk = 8;  // inputs read ahead of the chain
 constexpr int kRowsPerBlock = 32;
 
-template <typename T>
-struct Rn;
-
-template <>
-struct Rn<float> {
-  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-  static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-};
-
-template <>
-struct Rn<double> {
-  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-  static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
-};
+using rn::Rn;
 
 // One row of the cascade, direct form II transposed, per step and section:
 //   out = b0 v + z0;  z0 = (b1 v - a1 out) + z1;  z1 = b2 v - a2 out;  v = out

@@ -1,1 +1,1 @@
-"""Estimator method families: spectral (GLS)."""
+"""Estimator method families: spectral, phase folding and decomposition."""

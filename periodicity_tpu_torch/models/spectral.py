@@ -370,8 +370,9 @@ def gls_power_multiterm(t, y, err, df, fmin, nf, nterms, fit_mean=True, psd=Fals
 
 def _cholesky_solve_unrolled(G, b, pivot=None):
     """Unrolled Cholesky of ``G`` [..., D, D] and solve for ``b`` [..., D]:
-    about D^3/3 elementwise ops over the leading axes. ``pivot`` maps each
-    diagonal pivot before its square root. Returns (x, diag(L) list)."""
+    about D^3/3 elementwise ops over the leading axes. ``pivot(s, i)`` maps
+    row i's diagonal pivot s before its square root. Returns (x, diag(L)
+    list)."""
     D = G.shape[-1]
     L = [[None] * D for _ in range(D)]
     for i in range(D):
@@ -380,7 +381,7 @@ def _cholesky_solve_unrolled(G, b, pivot=None):
             for k in range(j):
                 s = s - L[i][k] * L[j][k]
             if i == j:
-                L[i][j] = torch.sqrt(s if pivot is None else pivot(s))
+                L[i][j] = torch.sqrt(s if pivot is None else pivot(s, i))
             else:
                 L[i][j] = s / L[j][j]
     z = [None] * D
@@ -404,10 +405,28 @@ def _solve_spd_small(G, b, unroll_max=16):
     positive ridge), ``b`` [..., D] -> [..., D]. The same recurrence as the
     JAX package, as elementwise ops over the frequency axis;
     ``torch.linalg.solve`` above ``unroll_max``, as JAX uses
-    ``jnp.linalg.solve`` there."""
+    ``jnp.linalg.solve`` there.
+
+    Where rounding alone drives a pivot to zero or below, to within
+    D * eps times its row's diagonal of G (a Gram matrix singular to
+    working precision, as in float32 where the ridge is below rounding),
+    the pivot is raised to that floor, so the solve stays finite where
+    JAX's unfloored recurrence takes the root of a non-positive number and
+    returns NaN or inf. A positive pivot is left as it is, however small,
+    so every bin where JAX is finite keeps JAX's bits; and a pivot further
+    below zero than rounding can explain (a Gram matrix of trig-sum
+    approximations that is not positive definite, far above the grid's
+    Nyquist frequency) stays NaN, as in JAX, rather than becoming a finite
+    power of no meaning (ROADMAP.md C2)."""
     if G.shape[-1] > unroll_max:
         return torch.linalg.solve(G, b[..., None])[..., 0]
-    return _cholesky_solve_unrolled(G, b)[0]
+    D = G.shape[-1]
+    tol = [D * torch.finfo(G.dtype).eps * G[..., i, i] for i in range(D)]
+
+    def pivot(s, i):
+        return torch.where((s <= 0) & (s >= -tol[i]), tol[i], s)
+
+    return _cholesky_solve_unrolled(G, b, pivot=pivot)[0]
 
 
 def _solve_spd_small_logdet(G, b, ridge=1e-12):
@@ -426,7 +445,7 @@ def _solve_spd_small_logdet(G, b, ridge=1e-12):
     d = torch.sqrt(torch.clamp(diag, min=torch.finfo(G.dtype).tiny))
     Gs = G / (d[..., :, None] * d[..., None, :])
     Gs = Gs + ridge * torch.eye(D, dtype=G.dtype, device=G.device)
-    z, ldiag = _cholesky_solve_unrolled(Gs, b / d, pivot=lambda s: torch.clamp(s, min=floor))
+    z, ldiag = _cholesky_solve_unrolled(Gs, b / d, pivot=lambda s, i: torch.clamp(s, min=floor))
     logdet = sum(2.0 * torch.log(ldiag[i]) for i in range(D)) + sum(
         2.0 * torch.log(d[..., i]) for i in range(D)
     )

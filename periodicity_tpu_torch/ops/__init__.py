@@ -1,2 +1,3 @@
-"""Numerical kernels: trig sums, the spreading, fold and recursion kernels and
-their loader, peaks, filters, splines and optimizers."""
+"""Numerical kernels: trig sums, the spreading, fold, recursion and sift
+kernels and their loader, peaks, filters, splines, optimizers, and EMD and
+LMD sifting."""

@@ -35,6 +35,7 @@ _LINK = [*_ARCH, "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 # C name -> argtypes (pointers and the stream as void*, sizes as int)
 ENTRY_POINTS = {
     # ilo, u_re, u_im, lag, n, taps, nfft, out_re, out_im, out_c, stream
@@ -49,6 +50,12 @@ ENTRY_POINTS = {
     # main, off1, off2, rhs, m, scratch, out, stream
     "pentadiagonal_solve_f32": [_P] * 4 + [_I] + [_P] * 3,
     "pentadiagonal_solve_f64": [_P] * 4 + [_I] + [_P] * 3,
+    # t, Y, n, b, max_modes, max_iter, pad_width, theta_1, theta_2, imf_limit,
+    # modes, residue, cur, kmode, units, scratch, stream
+    "emd_sift_f32": [_P] * 2 + [_I] * 5 + [_D] * 2 + [_I] + [_P] * 7,
+    "emd_sift_f64": [_P] * 2 + [_I] * 5 + [_D] * 2 + [_I] + [_P] * 7,
+    # n, pad_width, element size -> global scratch bytes a member needs
+    "emd_sift_scratch_bytes": [_I] * 3,
 }
 
 _LIB = None

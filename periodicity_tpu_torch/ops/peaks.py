@@ -7,7 +7,9 @@ range-min sparse tables with a binary descent per peak, and every
 criterion of ``scipy.signal.find_peaks`` in scipy's order. JAX's ``vmap``
 over peaks becomes plain tensor ops over a [K] vector of peaks, on the
 input's device; its ``nonzero(size=K)`` capacity buffers keep their
-sentinel index ``n`` past the count.
+sentinel index ``n`` past the count. The maxima and zero-crossing masks
+take a leading batch axis ``[..., N]`` (EMD sifts many series at once,
+where JAX vmaps them).
 """
 
 import math
@@ -39,33 +41,36 @@ def local_maxima_info(x):
     run of equal values whose left and right neighbours are strictly
     smaller (scipy.signal._local_maxima_1d).
 
-    Returns (mask [N] bool, left_edges [N], right_edges [N] int32): at a
-    peak midpoint m the first/last sample of its plateau, elsewhere 0.
+    x: [..., N], rows independent (the JAX package vmaps the 1-D function).
+    Returns (mask [..., N] bool, left_edges [..., N], right_edges [..., N]
+    int32): at a peak midpoint m the first/last sample of its plateau,
+    elsewhere 0.
     """
-    n = x.shape[0]
+    n = x.shape[-1]
     device = x.device
+    lead = x.shape[:-1]
     if n < 3:
-        z = torch.zeros(n, dtype=torch.int32, device=device)
-        return torch.zeros(n, dtype=torch.bool, device=device), z, z
+        z = torch.zeros(x.shape, dtype=torch.int32, device=device)
+        return torch.zeros(x.shape, dtype=torch.bool, device=device), z, z
     # run_start(m) = last change position <= m (cummax of packed keys),
     # run_end(m) = last plateau sample (reverse cummin of packed keys), with
     # the rising/falling comparison carried in the key's low bit
-    diff_gt = x[1:] > x[:-1]
-    diff_lt = x[1:] < x[:-1]
+    diff_gt = x[..., 1:] > x[..., :-1]
+    diff_lt = x[..., 1:] < x[..., :-1]
     chg = diff_gt | diff_lt
     k = torch.arange(1, n, dtype=torch.int64, device=device)
-    minus1 = torch.full((1,), -1, dtype=torch.int64, device=device)
+    minus1 = torch.full((*lead, 1), -1, dtype=torch.int64, device=device)
     key_l = torch.where(chg, 2 * k + diff_gt.to(torch.int64), minus1)
-    v_l = torch.cummax(torch.cat([minus1, key_l]), dim=0).values
+    v_l = torch.cummax(torch.cat([minus1, key_l], -1), dim=-1).values
     has_l = v_l >= 0
     run_start = torch.where(has_l, v_l >> 1, 0)
     rising = has_l & ((v_l & 1) == 1)
     # change between k and k+1 recorded AT k = 0..n-2; sentinel at n-1
     kk = torch.arange(0, n - 1, dtype=torch.int64, device=device)
-    sentinel = torch.full((1,), 2 * (n - 1) + 1, dtype=torch.int64, device=device)
+    sentinel = torch.full((*lead, 1), 2 * (n - 1) + 1, dtype=torch.int64, device=device)
     key_r = torch.where(chg, 2 * kk + diff_lt.to(torch.int64), sentinel)
-    rev = torch.flip(torch.cat([key_r, sentinel]), dims=(0,))
-    v_r = torch.flip(torch.cummin(rev, dim=0).values, dims=(0,))
+    rev = torch.flip(torch.cat([key_r, sentinel], -1), dims=(-1,))
+    v_r = torch.flip(torch.cummin(rev, dim=-1).values, dims=(-1,))
     run_end = v_r >> 1
     falling = ((v_r & 1) == 1) & (run_end <= n - 2)
     m = torch.arange(n, dtype=torch.int64, device=device)
@@ -76,7 +81,7 @@ def local_maxima_info(x):
 
 
 def local_maxima_mask(x):
-    """Boolean mask of local maxima with scipy plateau semantics."""
+    """Boolean mask [..., N] of local maxima with scipy plateau semantics."""
     return local_maxima_info(x)[0]
 
 
@@ -402,8 +407,10 @@ def find_peaks_full(x, capacity=None, height=None, threshold=None,
 
 
 def zero_crossings_mask(x):
-    """Mask m[i] = True where the sign bit changes between x[i] and
-    x[i+1] (``np.diff(np.signbit(x))``: the index of the sample before the
-    crossing). The last element is always False."""
+    """Mask m[..., i] = True where the sign bit changes between x[..., i]
+    and x[..., i+1] (``np.diff(np.signbit(x))``: the index of the sample
+    before the crossing), rows independent. The last element is always
+    False."""
     sb = torch.signbit(x)
-    return torch.cat([sb[1:] != sb[:-1], torch.zeros(1, dtype=torch.bool, device=x.device)])
+    last = torch.zeros((*x.shape[:-1], 1), dtype=torch.bool, device=x.device)
+    return torch.cat([sb[..., 1:] != sb[..., :-1], last], -1)

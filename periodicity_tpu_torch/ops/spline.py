@@ -4,7 +4,8 @@ Port of ``periodicity_tpu/ops/spline.py``, with its names: the not-a-knot
 cubic spline (``splrep(s=0)``/``splev``) in the first-derivative form,
 solved by parallel cyclic reduction (or the Thomas recursion below 32
 knots), with the masked fixed-capacity variant (``count``, ``hi``) that
-EMD's sift uses; the quadratic B-spline interpolant; and the Reinsch
+EMD's sift uses, over a leading batch axis of independent splines
+(``[..., K]``, where JAX vmaps); the quadratic B-spline interpolant; and the Reinsch
 smoothing spline with FITPACK's ``s`` criterion.
 
 The smoothing spline's pentadiagonal LDL^T solve is the recursion JAX runs
@@ -35,27 +36,28 @@ __all__ = [
 
 
 def _const(value, like, n=1):
-    return torch.full((n,), value, dtype=like.dtype, device=like.device)
+    """[..., n] of ``value`` in like's dtype and device, like's leading shape."""
+    return torch.full((*like.shape[:-1], n), value, dtype=like.dtype, device=like.device)
 
 
 def tridiagonal_solve_pcr(lower, diag, upper, rhs):
     """Parallel cyclic reduction: a tridiagonal solve in ceil(log2 n)
     levels of full-width elementwise ops. Out-of-range neighbours are
-    identity rows (a = c = 0, b = 1, d = 0). All inputs [n]; lower[0] and
-    upper[-1] are ignored."""
-    n = diag.shape[0]
-    a = torch.cat([_const(0.0, diag), lower[1:]])
-    c = torch.cat([upper[:-1], _const(0.0, diag)])
+    identity rows (a = c = 0, b = 1, d = 0). All inputs [..., n], one
+    system a row; lower[..., 0] and upper[..., -1] are ignored."""
+    n = diag.shape[-1]
+    a = torch.cat([_const(0.0, diag), lower[..., 1:]], -1)
+    c = torch.cat([upper[..., :-1], _const(0.0, diag)], -1)
     b = diag
     d = rhs
 
     def shift_up(v, s, fill):
         # v[i - s], identity-row fill for i < s
-        return torch.cat([_const(fill, v, s), v[: n - s]])
+        return torch.cat([_const(fill, v, s), v[..., : n - s]], -1)
 
     def shift_dn(v, s, fill):
         # v[i + s], identity-row fill for i >= n - s
-        return torch.cat([v[s:], _const(fill, v, s)])
+        return torch.cat([v[..., s:], _const(fill, v, s)], -1)
 
     s = 1
     while s < n:
@@ -74,20 +76,20 @@ def tridiagonal_solve_pcr(lower, diag, upper, rhs):
 
 
 def tridiagonal_solve(lower, diag, upper, rhs):
-    """Thomas algorithm, a loop over the n rows. All inputs [n]; lower[0]
-    and upper[-1] are ignored."""
-    n = diag.shape[0]
-    a = torch.cat([torch.zeros_like(lower[:1]), lower[1:]])
-    cp = [torch.zeros_like(diag[0])]
-    dp = [torch.zeros_like(rhs[0])]
+    """Thomas algorithm, a loop over the n rows. All inputs [..., n], one
+    system a row; lower[..., 0] and upper[..., -1] are ignored."""
+    n = diag.shape[-1]
+    a = torch.cat([torch.zeros_like(lower[..., :1]), lower[..., 1:]], -1)
+    cp = [torch.zeros_like(diag[..., 0])]
+    dp = [torch.zeros_like(rhs[..., 0])]
     for i in range(n):
-        denom = diag[i] - a[i] * cp[-1]
-        dp.append((rhs[i] - a[i] * dp[-1]) / denom)
-        cp.append(upper[i] / denom)
-    xs = [torch.zeros_like(rhs[0])]
+        denom = diag[..., i] - a[..., i] * cp[-1]
+        dp.append((rhs[..., i] - a[..., i] * dp[-1]) / denom)
+        cp.append(upper[..., i] / denom)
+    xs = [torch.zeros_like(rhs[..., 0])]
     for i in range(n, 0, -1):
         xs.append(dp[i] - cp[i] * xs[-1])
-    return torch.stack(xs[:0:-1])
+    return torch.stack(xs[:0:-1], -1)
 
 
 # below this size the two Thomas loops are shallow enough that PCR's ~2x
@@ -96,55 +98,64 @@ _PCR_MIN_SIZE = 32
 
 
 def _solve_tridiag(lower, diag, upper, rhs):
-    if diag.shape[0] >= _PCR_MIN_SIZE:
+    if diag.shape[-1] >= _PCR_MIN_SIZE:
         return tridiagonal_solve_pcr(lower, diag, upper, rhs)
     return tridiagonal_solve(lower, diag, upper, rhs)
+
+
+def _take(v, i):
+    """v[..., i] for an index tensor i [..., M] (negative indices count
+    from the end, as in numpy)."""
+    i = torch.where(i < 0, i + v.shape[-1], i).long()
+    return torch.gather(v, -1, i.expand(*v.shape[:-1], i.shape[-1]))
 
 
 def spline_derivatives(x, y, count=None):
     """First derivatives s_i of the not-a-knot cubic spline through (x, y).
 
-    x: [K] strictly increasing knots (entries >= count are padding and must
-    still be strictly increasing); y: [K] values; count: optional number of
-    valid knots (>= 4 for true not-a-knot behaviour; the rows beyond it
-    become identity equations), an int or a 0-d integer tensor.
+    x: [..., K] strictly increasing knots (entries >= count are padding and
+    must still be strictly increasing); y: [..., K] values; one spline a
+    row. count: optional number of valid knots (>= 4 for true not-a-knot
+    behaviour; the rows beyond it become identity equations), an int, a
+    0-d integer tensor or one per row [...].
     """
-    k = x.shape[0]
-    dx = torch.diff(x)
-    slope = torch.diff(y) / dx
-    dx0, dx1 = dx[0], dx[1]
+    k = x.shape[-1]
+    dx = torch.diff(x, dim=-1)
+    slope = torch.diff(y, dim=-1) / dx
+    dx0, dx1 = dx[..., :1], dx[..., 1:2]
     zero, one = _const(0.0, x), _const(1.0, x)
     # interior rows i = 1..k-2: dx[i] s[i-1] + 2(dx[i-1] + dx[i]) s[i] + dx[i-1] s[i+1]
-    lower = torch.cat([zero, dx[1:], zero])
-    diag = torch.cat([one, 2.0 * (dx[:-1] + dx[1:]), one])
-    upper = torch.cat([zero, dx[:-1], zero])
-    rhs = torch.cat([zero, 3.0 * (dx[1:] * slope[:-1] + dx[:-1] * slope[1:]), zero])
-    d0 = x[2] - x[0]
-    b0 = ((dx0 + 2.0 * d0) * dx1 * slope[0] + dx0 * dx0 * slope[1]) / d0
+    lower = torch.cat([zero, dx[..., 1:], zero], -1)
+    diag = torch.cat([one, 2.0 * (dx[..., :-1] + dx[..., 1:]), one], -1)
+    upper = torch.cat([zero, dx[..., :-1], zero], -1)
+    rhs = torch.cat([zero, 3.0 * (dx[..., 1:] * slope[..., :-1] + dx[..., :-1] * slope[..., 1:]),
+                     zero], -1)
+    d0 = x[..., 2:3] - x[..., :1]
+    b0 = ((dx0 + 2.0 * d0) * dx1 * slope[..., :1] + dx0 * dx0 * slope[..., 1:2]) / d0
 
     if count is None:
         # not-a-knot boundary rows
-        dxl, dxm = dx[-1], dx[-2]
-        dn = x[-1] - x[-3]
-        bn = (dxl * dxl * slope[-2] + (2.0 * dn + dxl) * dxm * slope[-1]) / dn
-        diag = torch.cat([dx1[None], diag[1:-1], dxm[None]])
-        upper = torch.cat([d0[None], upper[1:]])
-        lower = torch.cat([lower[:-1], dn[None]])
-        rhs = torch.cat([b0[None], rhs[1:-1], bn[None]])
+        dxl, dxm = dx[..., -1:], dx[..., -2:-1]
+        dn = x[..., -1:] - x[..., -3:-2]
+        bn = (dxl * dxl * slope[..., -2:-1] + (2.0 * dn + dxl) * dxm * slope[..., -1:]) / dn
+        diag = torch.cat([dx1, diag[..., 1:-1], dxm], -1)
+        upper = torch.cat([d0, upper[..., 1:]], -1)
+        lower = torch.cat([lower[..., :-1], dn], -1)
+        rhs = torch.cat([b0, rhs[..., 1:-1], bn], -1)
         return _solve_tridiag(lower, diag, upper, rhs)
 
-    # masked variant: the valid knots are x[0:count]
-    c = torch.as_tensor(count, device=x.device)
+    # masked variant: the valid knots are x[..., 0:count]
+    c = torch.as_tensor(count, device=x.device).expand(x.shape[:-1])[..., None]
     i1, i2, i3 = (torch.clamp(c - j, max=k - 1) for j in (1, 2, 3))
-    dx_l = x[i1] - x[i2]
-    dx_m = x[i2] - x[i3]
-    sl_l = (y[i1] - y[i2]) / dx_l
-    sl_m = (y[i2] - y[i3]) / dx_m
-    dn = x[i1] - x[i3]
+    dx_l = _take(x, i1) - _take(x, i2)
+    dx_m = _take(x, i2) - _take(x, i3)
+    sl_l = (_take(y, i1) - _take(y, i2)) / dx_l
+    sl_m = (_take(y, i2) - _take(y, i3)) / dx_m
+    dn = _take(x, i1) - _take(x, i3)
     bn = (dx_l * dx_l * sl_m + (2.0 * dn + dx_l) * dx_m * sl_l) / dn
-    diag = torch.cat([dx1[None], diag[1:]])
-    upper = torch.cat([d0[None], upper[1:]])
-    rhs = torch.cat([b0[None], rhs[1:]])
+    diag = torch.cat([dx1, diag[..., 1:]], -1)
+    upper = torch.cat([d0, upper[..., 1:]], -1)
+    rhs = torch.cat([b0, rhs[..., 1:]], -1)
     idx = torch.arange(k, device=x.device)
     is_last = idx == (c - 1)
     pad = idx >= c
@@ -171,20 +182,28 @@ def _interval_index(x, q, side="right"):
 
 def spline_eval(x, y, s, xnew, count=None, hi=None):
     """Evaluate the Hermite form of the spline at xnew (cubic
-    extrapolation). x, y, s: [K] knots, values, derivatives; xnew: [M];
-    count: valid knot count; ``hi`` optionally the precomputed interval
-    index ``searchsorted(x, xnew, "right")``."""
-    k = x.shape[0]
+    extrapolation). x, y, s: [..., K] knots, values, derivatives, one
+    spline a row; xnew: [M] or [..., M]; count: valid knot count (an int,
+    a 0-d tensor or one per row); ``hi`` optionally the precomputed
+    interval index ``searchsorted(x, xnew, "right")`` [..., M]."""
+    k = x.shape[-1]
     if hi is None:
-        hi = _interval_index(x, xnew)
+        if x.dim() == 1:
+            hi = _interval_index(x, xnew)
+        else:
+            q = xnew.expand(*x.shape[:-1], xnew.shape[-1]).contiguous()
+            hi = torch.searchsorted(x.contiguous(), q, side="right")
     if count is None:
         i = torch.clamp(hi - 1, 0, k - 2)
     else:
-        top = torch.clamp(torch.as_tensor(count, device=x.device) - 2, min=0)
+        c = torch.as_tensor(count, device=x.device).expand(x.shape[:-1])[..., None]
+        top = torch.clamp(c - 2, min=0)
         i = torch.minimum(torch.clamp(hi - 1, min=0), top)
     nxt = torch.cat([torch.arange(1, k, device=x.device),
                      torch.tensor([k - 1], device=x.device)])
-    rows = torch.stack([x, x[nxt], y, y[nxt], s, s[nxt]], dim=-1)[i]  # [M, 6]
+    rows = torch.stack([x, x[..., nxt], y, y[..., nxt], s, s[..., nxt]], dim=-1)  # [..., K, 6]
+    i = i.long().expand(*x.shape[:-1], i.shape[-1])
+    rows = torch.gather(rows, -2, i[..., None].expand(*i.shape, 6))  # [..., M, 6]
     x0, x1, y0, y1, s0, s1 = rows.unbind(-1)
     h = x1 - x0
     t = (xnew - x0) / h
@@ -196,7 +215,8 @@ def spline_eval(x, y, s, xnew, count=None, hi=None):
 
 
 def spline_interp(x, y, xnew, count=None, hi=None):
-    """Not-a-knot cubic spline interpolation (== scipy splrep(s=0)/splev)."""
+    """Not-a-knot cubic spline interpolation (== scipy splrep(s=0)/splev),
+    one spline a row of x, y [..., K]."""
     s = spline_derivatives(x, y, count=count)
     return spline_eval(x, y, s, xnew, count=count, hi=hi)
 

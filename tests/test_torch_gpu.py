@@ -658,3 +658,138 @@ def test_float32_results_do_not_depend_on_tf32_switches(cuda):
     assert all(a.dtype == torch.float32 for a in off)
     assert all(torch.equal(a, b) for a, b in zip(off[:-1], on[:-1])), diffs
     assert diffs[-1] > 1e-6, diffs  # the switches do reach an unpinned product
+
+
+# ---- the EMD sift kernel (csrc/sift.cu) and the decompositions -------------
+
+def _sift_case(case, dtype, device):
+    """(t, Y, keyword arguments) of a sift-kernel test draw."""
+    rng = np.random.default_rng(17)
+    tt = np.arange(200.0)
+    wavy = np.sin(tt[None] / np.array([[4.0], [7.0]])) + 0.3 * rng.standard_normal((2, 200))
+    t, Y, kw = {
+        # float64 at N = 2048 needs 229 KB a member: above the block's
+        # shared memory, so it runs in global scratch
+        "n2048": (np.arange(2048.0), rng.standard_normal((3, 2048)), {"max_modes": 4}),
+        "config10": (np.arange(1024.0), rng.standard_normal((8, 1024)), {"max_modes": 12}),
+        "short": (np.arange(3.0), np.ones((2, 3)), {}),
+        "ramp": (tt, np.stack([np.linspace(0, 1, 200), np.linspace(0, 1, 200) ** 2]), {}),
+        "plateau": (tt, np.stack([np.round(3 * np.sin(tt / 5.0)),
+                                  np.round(2 * np.sin(tt / 3.0) + np.cos(tt / 11.0))]), {}),
+        "pad1": (tt, wavy, {"pad_width": 1}),
+        "pad3": (tt, wavy, {"pad_width": 3}),
+        "max_iter": (tt, wavy, {"max_iter": 3}),
+        "thomas": (np.arange(20.0), rng.standard_normal((3, 20)), {}),
+    }[case]
+    kw.setdefault("max_modes", 3)
+    return (torch.from_numpy(t).to(device, dtype), torch.from_numpy(Y).to(device, dtype), kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["n2048", "config10", "short", "ramp", "plateau", "pad1", "pad3",
+                                  "max_iter", "thomas"])
+def test_sift_kernel_matches_plain_bit_for_bit(cuda, dtype, case):
+    from periodicity_tpu_torch.ops import emd
+
+    t, Y, kw = _sift_case(case, dtype, cuda)
+    before = emd.sift_machine.launches
+    got = emd.sift_machine(t, Y, **kw)
+    assert emd.sift_machine.launches == before + 1
+    want = emd.sift_machine_plain(t, Y, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_one_sift_launch_per_batch_call(cuda):
+    from periodicity_tpu_torch.ops import emd
+
+    t, Y, _ = _sift_case("config10", torch.float64, cuda)
+    for fn in (lambda: emd.emd_pool(t, Y, max_modes=4), lambda: emd.emd_batch(t, Y),
+               lambda: emd.emd_iter_pool(t, Y), lambda: emd.emd_iter(t, Y[0])):
+        before = emd.sift_machine.launches
+        fn()
+        assert emd.sift_machine.launches == before + 1
+
+
+def test_sift_kernel_raises_and_never_falls_back(cuda, monkeypatch):
+    """CPU tensors at the kernel entry, mixed devices, non-contiguous input
+    and a wrong dtype raise; a failed launch raises instead of returning
+    the plain version's result."""
+    from periodicity_tpu_torch.ops import emd
+
+    t, Y, _ = _sift_case("pad1", torch.float64, cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        emd._sift_machine_cuda(t.cpu(), Y.cpu(), 2, 10, 2, 0.05, 0.5, 0.05)
+    with pytest.raises(ValueError):
+        emd._sift_machine_cuda(t.cpu(), Y, 2, 10, 2, 0.05, 0.5, 0.05)
+    with pytest.raises(ValueError, match="contiguous"):
+        emd._sift_machine_cuda(t[::2].contiguous(), Y[:, ::2], 2, 10, 2, 0.05, 0.5, 0.05)
+    with pytest.raises(TypeError):
+        emd._sift_machine_cuda(t.half(), Y.half(), 2, 10, 2, 0.05, 0.5, 0.05)
+
+    class Failing:
+        @staticmethod
+        def emd_sift_scratch_bytes(*args):
+            return 0
+
+        @staticmethod
+        def emd_sift_f64(*args):
+            return 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(_kernels, "load", lambda: Failing())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        emd.emd_pool(t, Y, max_modes=2)
+
+
+def test_ceemdan_reference_thresholds_on_card(cuda):
+    """The reference's seeded two-tone thresholds
+    (tests/test_decomposition.py:35-55) at N = 1000, 50 realizations."""
+    from periodicity_tpu_torch.data import SustainedPlusGappedPureTones
+    from periodicity_tpu_torch.decomposition import CEEMDAN
+
+    x = TSeries(values=torch.from_numpy(SustainedPlusGappedPureTones()).to(cuda))
+    imfs = CEEMDAN(ensemble_size=50, random_seed=42)(x)
+    assert len(imfs) == 2
+    m0 = imfs[0].values.cpu().numpy()
+    assert np.mean(np.square(m0[11:490])) < 1e-4
+    assert np.mean(np.square(m0[761:990])) < 1e-4
+    s2 = np.sin(2 * np.pi * 0.065 * np.arange(1000))
+    s1 = np.zeros_like(s2)
+    s1[500:750] += np.sin(2 * np.pi * 0.255 * np.arange(250))
+    xv = x.values.cpu().numpy()
+    err1 = (m0 - s1)[3:-3]
+    err2 = (imfs[1].values.cpu().numpy() - s2)[3:-3]
+    err = sum(m.values.cpu().numpy() for m in imfs) - xv
+    assert np.linalg.norm(err1) / np.linalg.norm(s1[3:-3]) < 0.10
+    assert np.linalg.norm(err2) / np.linalg.norm(s2[3:-3]) < 0.05
+    assert np.linalg.norm(err) / np.linalg.norm(xv) < 1e-10
+
+
+def test_decompositions_on_card_match_cpu(cuda):
+    """EMD, LMD (its first product function: past it the smoothing's
+    summation order can part the two, ROADMAP.md C4), VMD and CEEMDAN with
+    its post-processing, card against CPU within 1e-9 of max|x|."""
+    from periodicity_tpu_torch.decomposition import CEEMDAN, EMD, LMD, VMD
+
+    t = np.arange(512.0)
+    x = np.sin(2 * np.pi * 0.01 * t) + 0.5 * np.sin(2 * np.pi * 0.1 * t)
+    x = x + 0.05 * np.random.default_rng(1).standard_normal(512)
+    card, host = TSeries(t, x, device=cuda), TSeries(t, x, device="cpu")
+
+    def same(a, b):
+        assert len(a) == len(b)
+        for u, v in zip(a, b):
+            assert float((u.values.cpu() - v.values).abs().max()) <= 1e-9 * 1.6
+
+    same(EMD()(card), EMD()(host))
+    same(VMD(n_modes=3)(card), VMD(n_modes=3)(host))
+    pf, pf_cpu = LMD()(card, max_modes=1), LMD()(host, max_modes=1)
+    same([pf[0][0] * pf[0][1]], [pf_cpu[0][0] * pf_cpu[0][1]])
+    dec, dec_cpu = CEEMDAN(ensemble_size=8, random_seed=3), CEEMDAN(ensemble_size=8, random_seed=3)
+    same(dec(card), dec_cpu(host))
+    dec.postprocessing()
+    dec_cpu.postprocessing()
+    same(dec.c_modes + [dec.c_residue], dec_cpu.c_modes + [dec_cpu.c_residue])
+    np.testing.assert_allclose(dec.c_orthogonality_matrix, dec_cpu.c_orthogonality_matrix,
+                               atol=1e-9)

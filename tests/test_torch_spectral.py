@@ -24,6 +24,7 @@ The behavioural checks of ``tests/test_spectral.py`` run on the port too.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -466,10 +467,38 @@ def test_gls_power_multiterm_float32_matches_jax(harmonic_signal):
                                            3))
     got = P.gls_power_multiterm(T(t32), T(y32), T(e32), df, fmin, nf, 3)
     assert got.dtype == torch.float32 and np.isnan(ref[0]) and np.isfinite(ref[1:]).all()
+    # the port is finite at JAX's NaN bin (ROADMAP.md C2)
+    assert np.isfinite(got.numpy()).all()
     cond = _gram_cond(t32, e32, fmin + df * np.arange(nf), 3)
     peak = ref64.max()
     tol = np.nanmax(np.abs(ref - ref64)) + 1e-6 * peak + np.finfo(np.float32).eps * cond * peak
     assert (np.abs(got.numpy() - ref64) <= tol).all()
+
+
+def test_solve_spd_small_floors_collapsed_pivots():
+    """C2: a nearly collinear float32 Gram matrix whose last pivot rounds to
+    zero or below. JAX's unfloored recurrence returns NaN or inf, and so
+    does the port's without the floor; the port's solve is finite.
+    Healthy systems keep the unfloored bits, and a pivot far below zero
+    (not rounding) stays NaN as in JAX."""
+    rng = np.random.default_rng(0)
+    n = 50
+    c = rng.standard_normal(n)
+    A = np.stack([np.ones(n), c, c + 1e-4 * rng.standard_normal(n)], 1).astype(np.float32)
+    G = A.T @ A + np.float32(1e-8) * np.eye(3, dtype=np.float32)
+    b = (A.T @ rng.standard_normal(n)).astype(np.float32)
+    assert not np.isfinite(np.asarray(J._solve_spd_small(jnp.asarray(G), jnp.asarray(b)))).all()
+    assert not torch.isfinite(P._cholesky_solve_unrolled(T(G), T(b))[0]).all()
+    x = P._solve_spd_small(T(G), T(b))
+    assert torch.isfinite(x).all()
+    # with every pivot positive, b . x = |L^-1 b|^2: a power is never negative
+    assert float(torch.dot(T(b), x)) >= 0.0
+    healthy = (lambda M: M @ M.transpose(-1, -2) + 3 * torch.eye(3, dtype=torch.float32))(
+        torch.from_numpy(rng.standard_normal((64, 3, 3)).astype(np.float32)))
+    hb = torch.from_numpy(rng.standard_normal((64, 3)).astype(np.float32))
+    assert torch.equal(P._solve_spd_small(healthy, hb), P._cholesky_solve_unrolled(healthy, hb)[0])
+    indefinite = torch.tensor([[1.0, 2.0], [2.0, 1.0]])
+    assert not torch.isfinite(P._solve_spd_small(indefinite, torch.ones(2))).all()
 
 
 def test_config12_tolerance_is_jax_float32_error():
