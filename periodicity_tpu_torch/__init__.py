@@ -7,24 +7,29 @@ spline and optimizer ops under them and the bundled data; the spectral
 estimators (GLS with its bootstrap, FAP/FAL, refinement, window, model
 and harmonic terms; batched GLS; MultibandGLS; BGLST) and the
 phase-folding estimators (BLS, AoV, ConditionalEntropy, GregoryLoredo,
-PDM, StringLength); the decompositions (EMD, LMD, CEEMDAN, VMD). Non-tensor inputs land on the card unless
+PDM, StringLength); the decompositions (EMD, LMD, CEEMDAN, VMD); the
+time-frequency estimators (WPS, HHT, CompositeSpectrum, denoising and
+their batches). Non-tensor inputs land on the card unless
 ``device="cpu"`` is asked for. Module layout mirrors the JAX package::
 
     periodicity_tpu_torch.core       TSeries / FSeries / TFSeries, from_jax
     periodicity_tpu_torch.spectral   GLS, MultibandGLS, BGLST (+ their scans)
     periodicity_tpu_torch.phase      BLS, AoV, PDM, ... (+ their scans)
     periodicity_tpu_torch.decomposition  EMD, LMD, CEEMDAN, VMD
+    periodicity_tpu_torch.timefrequency  WPS, HHT, CompositeSpectrum, denoise
     periodicity_tpu_torch.ops        trig sums, spreading, fold, recursion and
-                                     sift kernels, peaks, filters, splines,
-                                     optimizers, EMD and LMD sifting
+                                     sift and AM/FM normalization kernels,
+                                     peaks, filters, splines, optimizers,
+                                     EMD and LMD sifting, wavelets, HHT
     periodicity_tpu_torch.data       bundled datasets and signal generators
 """
 
 from . import core, data, decomposition, ops, phase, spectral
+from . import timefrequency
 from .core import FSeries, TFSeries, TSeries
 
 __version__ = "0.1.0"
 name = "periodicity_tpu_torch"
 
-__all__ = ["TSeries", "FSeries", "TFSeries", "core", "spectral", "phase", "decomposition", "ops",
-           "data"]
+__all__ = ["TSeries", "FSeries", "TFSeries", "core", "spectral", "phase", "decomposition",
+           "timefrequency", "ops", "data"]

@@ -51,12 +51,11 @@
 // idles: splitting a member over a cluster of blocks is the first thing a
 // redesign looks at.
 //
-// The capacity buffers' filler knots past the valid count (emd.py:79-80,
-// 142-144) never reach a result: the masked system makes their rows
-// identity rows, the evaluation reads knots below the count only, and a
-// sift with too few extrema (where the count is clamped up to 4 and the
-// fillers would enter) changes nothing. So the kernel builds only the
-// valid knots and skips the envelopes of such a sift.
+// The envelope stages (extrema, knots, the spline solve, the Hermite
+// evaluation) live in envelope.cuh, which the AM/FM normalization kernel
+// (amfm.cu, N1) shares. A sift with too few extrema (where the plain
+// version clamps the knot count up to 4 and its filler knots would enter)
+// changes nothing, so the kernel skips the envelopes of such a sift.
 //
 // Every floating-point operation is rounded on its own (rn.cuh) in the
 // order the plain version computes it, so kernel and plain version agree
@@ -66,25 +65,13 @@
 
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstddef>
 
-#include "rn.cuh"
+#include "envelope.cuh"
 
 namespace {
 
-using rn::Rn;
-
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxN = 1 << 20;
-// three counts of up to 21 bits packed into one 64-bit scan value
-constexpr int kField = 21;
-constexpr unsigned long long kFieldMask = (1ull << kField) - 1;
-// smallest system PCR solves (the JAX package's _PCR_MIN_SIZE)
-constexpr int kPcrMinSize = 32;
-
-__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~static_cast<size_t>(15); }
+using namespace envelope;
 
 // One member's working arrays, carved from one byte range.
 template <typename T>
@@ -94,161 +81,20 @@ struct Work {
   T* mu;                 // [n] the envelope mean of this sift
   long long* keys;       // [n] block-scan values
   unsigned char* flags;  // [n] bit 0 upper extremum, 1 lower, 2 zero crossing
-  T* pt[2];              // [K] padded knot times, upper and lower envelope
-  T* pv[2];              // [K] padded knot values
-  T* sys[2][2][4];       // [envelope][buffer][a, b, c, d] [K] tridiagonal rows
+  Knots<T, 2> kn;        // the upper and lower envelope's knots and rows
 };
 
 // Points w's arrays into the byte range at base; returns its size in bytes.
 template <typename T>
 __host__ __device__ size_t carve(int n, int k, char* base, Work<T>& w) {
-  size_t off = 0;
-  auto at = [&](size_t bytes) {
-    char* p = base + off;
-    off += align16(bytes);
-    return p;
-  };
-  w.cur = reinterpret_cast<T*>(at(sizeof(T) * n));
-  w.res = reinterpret_cast<T*>(at(sizeof(T) * n));
-  w.mu = reinterpret_cast<T*>(at(sizeof(T) * n));
-  w.keys = reinterpret_cast<long long*>(at(sizeof(long long) * n));
-  w.flags = reinterpret_cast<unsigned char*>(at(n));
-  for (int e = 0; e < 2; ++e) {
-    w.pt[e] = reinterpret_cast<T*>(at(sizeof(T) * k));
-    w.pv[e] = reinterpret_cast<T*>(at(sizeof(T) * k));
-    for (int s = 0; s < 2; ++s)
-      for (int j = 0; j < 4; ++j) w.sys[e][s][j] = reinterpret_cast<T*>(at(sizeof(T) * k));
-  }
-  return off;
-}
-
-__host__ __device__ inline int capacity(int n, int pad_width) { return n / 2 + 4 + 2 * pad_width; }
-
-// (hi, lo) 32-bit halves of a scan value
-__device__ __forceinline__ long long pack2(int hi, int lo) {
-  return static_cast<long long>((static_cast<unsigned long long>(static_cast<unsigned>(hi)) << 32) |
-                                static_cast<unsigned>(lo));
-}
-__device__ __forceinline__ int hi32(long long v) { return static_cast<int>(v >> 32); }
-__device__ __forceinline__ int lo32(long long v) {
-  return static_cast<int>(static_cast<unsigned>(static_cast<unsigned long long>(v)));
-}
-
-struct PairMax {
-  __device__ long long operator()(long long a, long long b) const {
-    return pack2(max(hi32(a), hi32(b)), max(lo32(a), lo32(b)));
-  }
-};
-
-struct Add {
-  __device__ long long operator()(long long a, long long b) const { return a + b; }
-};
-
-// In-place inclusive scan of v[0, n) under op (associative), each thread a
-// contiguous chunk; returns the total to every thread. Ends on a barrier.
-template <typename Op>
-__device__ long long block_scan(long long* v, int n, Op op, long long ident, long long* sh) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int per = (n + kThreads - 1) / kThreads;
-  const int lo = min(n, tid * per);
-  const int hi = min(n, lo + per);
-  long long acc = ident;
-  for (int i = lo; i < hi; ++i) {
-    acc = op(acc, v[i]);
-    v[i] = acc;
-  }
-  long long x = acc;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x = op(y, x);
-  }
-  if (lane == 31) sh[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    long long s = lane < kWarps ? sh[lane] : ident;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s = op(y, s);
-    }
-    if (lane < kWarps) sh[lane] = s;
-  }
-  __syncthreads();
-  long long excl = __shfl_up_sync(0xffffffffu, x, 1);
-  if (lane == 0) excl = ident;
-  if (warp > 0) excl = op(sh[warp - 1], excl);
-  for (int i = lo; i < hi; ++i) v[i] = op(excl, v[i]);
-  const long long total = sh[kWarps - 1];
-  __syncthreads();
-  return total;
-}
-
-// Sum of x over the block, to every thread. Ends on a barrier.
-__device__ long long block_sum(long long x, long long* sh) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = x;
-  __syncthreads();
-  long long total = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) total += sh[w];
-  __syncthreads();
-  return total;
-}
-
-__device__ __forceinline__ int field(long long v, int f) {
-  return static_cast<int>((static_cast<unsigned long long>(v) >> (kField * f)) & kFieldMask);
-}
-
-// Row i of envelope e's masked not-a-knot system over the knots (x, y)
-// with c >= 4 valid ones (ops/spline.py::spline_derivatives, count given),
-// as PCR's (a, b, c, d): a[0] = 0, c[k-1] = 0, identity rows past c.
-template <typename T>
-__device__ void spline_row(const T* x, const T* y, int c, int k, int i, T* a, T* b, T* cc,
-                           T* d) {
-  using R = Rn<T>;
-  T lower, diag, upper, rhs;
-  if (i >= c) {
-    lower = T(0), diag = T(1), upper = T(0), rhs = T(0);
-  } else if (i == c - 1) {
-    const T dx_l = R::sub(x[c - 1], x[c - 2]);
-    const T dx_m = R::sub(x[c - 2], x[c - 3]);
-    const T sl_l = R::div(R::sub(y[c - 1], y[c - 2]), dx_l);
-    const T sl_m = R::div(R::sub(y[c - 2], y[c - 3]), dx_m);
-    const T dn = R::sub(x[c - 1], x[c - 3]);
-    // (dx_l dx_l sl_m + (2 dn + dx_l) dx_m sl_l) / dn
-    const T bn = R::div(R::add(R::mul(R::mul(dx_l, dx_l), sl_m),
-                               R::mul(R::mul(R::add(R::mul(T(2), dn), dx_l), dx_m), sl_l)),
-                        dn);
-    lower = dn, diag = dx_m, upper = T(0), rhs = bn;
-  } else if (i == 0) {
-    const T dx0 = R::sub(x[1], x[0]);
-    const T dx1 = R::sub(x[2], x[1]);
-    const T s0 = R::div(R::sub(y[1], y[0]), dx0);
-    const T s1 = R::div(R::sub(y[2], y[1]), dx1);
-    const T d0 = R::sub(x[2], x[0]);
-    // ((dx0 + 2 d0) dx1 s0 + dx0 dx0 s1) / d0
-    const T b0 = R::div(R::add(R::mul(R::mul(R::add(dx0, R::mul(T(2), d0)), dx1), s0),
-                               R::mul(R::mul(dx0, dx0), s1)),
-                        d0);
-    lower = T(0), diag = dx1, upper = d0, rhs = b0;
-  } else {
-    const T dxa = R::sub(x[i], x[i - 1]);  // dx[i-1]
-    const T dxb = R::sub(x[i + 1], x[i]);  // dx[i]
-    const T sa = R::div(R::sub(y[i], y[i - 1]), dxa);
-    const T sb = R::div(R::sub(y[i + 1], y[i]), dxb);
-    lower = dxb;
-    diag = R::mul(T(2), R::add(dxa, dxb));
-    upper = dxa;
-    rhs = R::mul(T(3), R::add(R::mul(dxb, sa), R::mul(dxa, sb)));
-  }
-  *a = i == 0 ? T(0) : lower;
-  *b = diag;
-  *cc = i == k - 1 ? T(0) : upper;
-  *d = rhs;
+  Carve c{base};
+  w.cur = c.take<T>(n);
+  w.res = c.take<T>(n);
+  w.mu = c.take<T>(n);
+  w.keys = c.take<long long>(n);
+  w.flags = c.take<unsigned char>(n);
+  carve_knots(c, k, w.kn);
+  return c.off;
 }
 
 template <typename T>
@@ -272,57 +118,14 @@ emd_sift_kernel(const T* __restrict__ t, const T* __restrict__ Y, int n, int max
     W.cur[i] = y[i];
     W.res[i] = y[i];
   }
-  const T t0 = t[0];
-  const T tl = t[n - 1];
   int kmode = 0, it = 0, units = 0;
   bool done = n < 4;
   __syncthreads();
 
   while (!done) {
-    // 1. plateau runs: forward cummax of the last change at or before i
-    //    (high half) and, over the reversed index, of minus the first change
-    //    at or after i (low half), as ops/peaks.py::local_maxima_info
-    for (int p = tid; p < n; p += kThreads) {
-      int kl = -1;
-      if (p >= 1) {
-        const T a = W.cur[p - 1], c = W.cur[p];
-        const bool gt = c > a, lt = c < a;
-        if (gt || lt) kl = 2 * p + (gt ? 1 : 0);
-      }
-      const int q = n - 1 - p;
-      int kr = 2 * (n - 1) + 1;
-      if (q <= n - 2) {
-        const T a = W.cur[q], c = W.cur[q + 1];
-        const bool gt = c > a, lt = c < a;
-        if (gt || lt) kr = 2 * q + (lt ? 1 : 0);
-      }
-      W.keys[p] = pack2(kl, -kr);
-    }
-    __syncthreads();
-    block_scan(W.keys, n, PairMax(), pack2(INT_MIN, INT_MIN), sh);
-    // 2. maxima of cur (bit 0) and of -cur (bit 1), zero crossings (bit 2)
-    for (int i = tid; i < n; i += kThreads) {
-      const int vl = hi32(W.keys[i]);
-      const int vr = -lo32(W.keys[n - 1 - i]);
-      const bool has_l = vl >= 0;
-      const int run_start = has_l ? (vl >> 1) : 0;
-      const int run_end = vr >> 1;
-      const bool mid = i == ((run_start + run_end) >> 1) && run_end <= n - 2 && has_l;
-      const bool up = mid && (vl & 1) && (vr & 1);
-      const bool lo = mid && !(vl & 1) && !(vr & 1);
-      const bool zc = i < n - 1 && (signbit(W.cur[i + 1]) != signbit(W.cur[i]));
-      W.flags[i] = static_cast<unsigned char>(up | (lo << 1) | (zc << 2));
-    }
-    __syncthreads();
-    for (int i = tid; i < n; i += kThreads) {
-      const unsigned f = W.flags[i];
-      W.keys[i] = static_cast<long long>((f & 1u) | (static_cast<unsigned long long>((f >> 1) & 1u)
-                                                     << kField) |
-                                         (static_cast<unsigned long long>((f >> 2) & 1u)
-                                          << (2 * kField)));
-    }
-    __syncthreads();
-    const long long total = block_scan(W.keys, n, Add(), 0, sh);
+    // 1-2. the maxima of cur and of -cur, the zero crossings and their
+    //      running counts
+    const long long total = extrema(W.cur, n, W.keys, W.flags, sh);
     const int n_int[2] = {field(total, 0), field(total, 1)};
     const int n_zero = field(total, 2);
     const int cnt[2] = {n_int[0] + 2 * w, n_int[1] + 2 * w};
@@ -330,126 +133,18 @@ emd_sift_kernel(const T* __restrict__ t, const T* __restrict__ Y, int n, int max
 
     bool is_imf = false;
     if (ok) {
-      // 3. the padded knots: interior extremum j at slot w + j; the first w
-      //    also reflected about t[0] to slot w-1-j, the last w about t[N-1]
-      //    to slot 2 n_int + w - 1 - j (ops/emd.py::_pad_reflect_drop)
-      for (int i = tid; i < n; i += kThreads) {
-        const unsigned f = W.flags[i];
-        if (!(f & 3u)) continue;
-        const int e = (f & 1u) ? 0 : 1;
-        const int j = field(W.keys[i], e) - 1;
-        const T tv = t[i];
-        const T v = e ? -W.cur[i] : W.cur[i];
-        T* pt = W.pt[e];
-        T* pv = W.pv[e];
-        pt[w + j] = tv;
-        pv[w + j] = v;
-        if (j < w) {
-          pt[w - 1 - j] = R::sub(R::mul(T(2), t0), tv);
-          pv[w - 1 - j] = v;
-        }
-        if (j >= n_int[e] - w) {
-          const int s = 2 * n_int[e] + w - 1 - j;
-          pt[s] = R::sub(R::mul(T(2), tl), tv);
-          pv[s] = v;
-        }
-      }
-      __syncthreads();
-      // 4. the two systems' rows into buffer 0
-      for (int r = tid; r < 2 * k; r += kThreads) {
-        const int e = r / k, i = r - e * k;
-        T* const* s0 = W.sys[e][0];
-        spline_row(W.pt[e], W.pv[e], cnt[e], k, i, &s0[0][i], &s0[1][i], &s0[2][i], &s0[3][i]);
-      }
-      __syncthreads();
-      // 5. the knots' first derivatives
+      // 3-5. the padded knots, the two systems and the knots' derivatives
+      place_knots(t, W.cur, n, w, n_int, W.keys, W.flags, W.kn);
       const T* sd[2];
-      if (k >= kPcrMinSize) {
-        // PCR: level by level the coupling to rows i -+ s, out-of-range
-        // rows as identity rows (ops/spline.py::tridiagonal_solve_pcr)
-        int src = 0;
-        for (int s = 1; s < k; s *= 2, src ^= 1) {
-          for (int r = tid; r < 2 * k; r += kThreads) {
-            const int e = r / k, i = r - e * k;
-            T* const* in = W.sys[e][src];
-            T* const* out = W.sys[e][src ^ 1];
-            const T a = in[0][i], bb = in[1][i], c = in[2][i], d = in[3][i];
-            const bool up = i >= s, dn = i + s < k;
-            const T a_u = up ? in[0][i - s] : T(0), b_u = up ? in[1][i - s] : T(1);
-            const T c_u = up ? in[2][i - s] : T(0), d_u = up ? in[3][i - s] : T(0);
-            const T a_d = dn ? in[0][i + s] : T(0), b_d = dn ? in[1][i + s] : T(1);
-            const T c_d = dn ? in[2][i + s] : T(0), d_d = dn ? in[3][i + s] : T(0);
-            const T alpha = R::div(-a, b_u);
-            const T beta = R::div(-c, b_d);
-            out[0][i] = R::mul(alpha, a_u);
-            out[2][i] = R::mul(beta, c_d);
-            out[1][i] = R::add(R::add(bb, R::mul(alpha, c_u)), R::mul(beta, a_d));
-            out[3][i] = R::add(R::add(d, R::mul(alpha, d_u)), R::mul(beta, d_d));
-          }
-          __syncthreads();
-        }
-        for (int r = tid; r < 2 * k; r += kThreads) {
-          const int e = r / k, i = r - e * k;
-          W.sys[e][src ^ 1][0][i] = R::div(W.sys[e][src][3][i], W.sys[e][src][1][i]);
-        }
-        sd[0] = W.sys[0][src ^ 1][0];
-        sd[1] = W.sys[1][src ^ 1][0];
-      } else {
-        // Thomas, one thread a system (ops/spline.py::tridiagonal_solve)
-        if (tid == 0 || tid == 32) {
-          const int e = tid == 0 ? 0 : 1;
-          T* const* in = W.sys[e][0];
-          T* cp = W.sys[e][1][0];
-          T* dp = W.sys[e][1][1];
-          T* xs = W.sys[e][1][2];
-          T cp_prev = T(0), dp_prev = T(0);
-          for (int i = 0; i < k; ++i) {
-            const T denom = R::sub(in[1][i], R::mul(in[0][i], cp_prev));
-            dp_prev = R::div(R::sub(in[3][i], R::mul(in[0][i], dp_prev)), denom);
-            cp_prev = R::div(in[2][i], denom);
-            cp[i] = cp_prev;
-            dp[i] = dp_prev;
-          }
-          T x_next = T(0);
-          for (int i = k - 1; i >= 0; --i) {
-            x_next = R::sub(dp[i], R::mul(cp[i], x_next));
-            xs[i] = x_next;
-          }
-        }
-        sd[0] = W.sys[0][1][2];
-        sd[1] = W.sys[1][1][2];
-      }
-      __syncthreads();
+      solve_derivatives(cnt, k, W.kn, sd);
       // 6. the envelopes at every sample (ops/spline.py::spline_eval with
       //    hi = pad_width + #extrema <= i), mu and sigma, and the counts
       long long gt = 0, not_lt = 0;
       for (int i = tid; i < n; i += kThreads) {
         const long long cs = W.keys[i];
         const T ti = t[i];
-        T env[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int hi = w + field(cs, e);
-          const int j = min(max(hi - 1, 0), cnt[e] - 2);
-          const T* x = W.pt[e];
-          const T* v = W.pv[e];
-          const T x0 = x[j], x1 = x[j + 1], y0 = v[j], y1 = v[j + 1];
-          const T s0 = sd[e][j], s1 = sd[e][j + 1];
-          const T h = R::sub(x1, x0);
-          const T u = R::div(R::sub(ti, x0), h);
-          const T omu = R::sub(T(1), u);
-          const T omu2 = R::mul(omu, omu);
-          const T h00 = R::mul(R::add(T(1), R::mul(T(2), u)), omu2);
-          const T h10 = R::mul(u, omu2);
-          const T uu = R::mul(u, u);
-          const T h01 = R::mul(uu, R::sub(T(3), R::mul(T(2), u)));
-          const T h11 = R::mul(uu, R::sub(u, T(1)));
-          env[e] = R::add(R::add(R::add(R::mul(h00, y0), R::mul(R::mul(h10, h), s0)),
-                                 R::mul(h01, y1)),
-                          R::mul(R::mul(h11, h), s1));
-        }
-        const T upper = env[0];
-        const T lower = -env[1];
+        const T upper = hermite(W.kn.pt[0], W.kn.pv[0], sd[0], w + field(cs, 0), cnt[0], ti);
+        const T lower = -hermite(W.kn.pt[1], W.kn.pv[1], sd[1], w + field(cs, 1), cnt[1], ti);
         const T mu = R::mul(R::add(upper, lower), T(0.5));
         const T amp = R::mul(R::sub(upper, lower), T(0.5));
         const T sigma = fabs(R::div(mu, amp));
@@ -506,16 +201,10 @@ emd_sift_kernel(const T* __restrict__ t, const T* __restrict__ Y, int n, int max
 // use on the current device (the opt-in limit less the static slots and a
 // margin): the arrays go there when they fit, else to global scratch.
 template <typename T>
-cudaError_t plan(int n, int pad_width, size_t* bytes, size_t* shared_limit) {
+cudaError_t plan(int n, int pad_width, size_t* bytes, size_t* limit) {
   Work<T> w;
   *bytes = carve<T>(n, capacity(n, pad_width), nullptr, w);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  *shared_limit = static_cast<size_t>(optin) - 1024;
-  return cudaSuccess;
+  return shared_limit(limit);
 }
 
 template <typename T>

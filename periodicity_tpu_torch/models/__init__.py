@@ -1,1 +1,2 @@
-"""Estimator method families: spectral, phase folding and decomposition."""
+"""Estimator method families: spectral, phase folding, decomposition and
+time-frequency."""

@@ -1,3 +1,3 @@
-"""Numerical kernels: trig sums, the spreading, fold, recursion and sift
-kernels and their loader, peaks, filters, splines, optimizers, and EMD and
-LMD sifting."""
+"""Numerical kernels: trig sums, the spreading, fold, recursion, sift and
+AM/FM normalization kernels and their loader, peaks, filters, splines,
+optimizers, EMD and LMD sifting, wavelets and the Hilbert-Huang functions."""

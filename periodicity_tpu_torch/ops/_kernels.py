@@ -56,6 +56,11 @@ ENTRY_POINTS = {
     "emd_sift_f64": [_P] * 2 + [_I] * 5 + [_D] * 2 + [_I] + [_P] * 7,
     # n, pad_width, element size -> global scratch bytes a member needs
     "emd_sift_scratch_bytes": [_I] * 3,
+    # t, X, n, rows, n_iter, pad_width, eps, A, F, passes, scratch, stream
+    "amfm_normalize_f32": [_P] * 2 + [_I] * 4 + [_D] + [_P] * 5,
+    "amfm_normalize_f64": [_P] * 2 + [_I] * 4 + [_D] + [_P] * 5,
+    # n, pad_width, element size -> global scratch bytes a row needs
+    "amfm_scratch_bytes": [_I] * 3,
 }
 
 _LIB = None

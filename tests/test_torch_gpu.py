@@ -1,7 +1,8 @@
 """The CUDA kernels (the spreading kernel through both of its entry points,
-the phase fold, the two recursions) against their plain versions, and the
-GLS, batched GLS, bootstrap, rest-of-spectral, BLS and container paths, on
-the card; float32 results independent of the TF32 switches.
+the phase fold, the two recursions, the sift and the AM/FM normalization)
+against their plain versions, and the GLS, batched GLS, bootstrap,
+rest-of-spectral, BLS, container, decomposition and time-frequency paths,
+on the card; float32 results independent of the TF32 switches.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the device and
 skips where there is none. Run on a GPU machine without the repo's
@@ -793,3 +794,135 @@ def test_decompositions_on_card_match_cpu(cuda):
     same(dec.c_modes + [dec.c_residue], dec_cpu.c_modes + [dec_cpu.c_residue])
     np.testing.assert_allclose(dec.c_orthogonality_matrix, dec_cpu.c_orthogonality_matrix,
                                atol=1e-9)
+
+
+# ---- the AM/FM normalization kernel (csrc/amfm.cu) and time-frequency -------
+
+def _amfm_case(case, dtype, device):
+    """(t, X, keyword arguments) of a normalization-kernel test draw."""
+    rng = np.random.default_rng(23)
+    t = np.arange(0, 64, 0.25)
+    env = 1 + 0.4 * np.sin(2 * np.pi * t / 30)
+    tones = np.stack([env * np.sin(2 * np.pi * 0.5 * t),
+                      np.sin(2 * np.pi * 0.13 * t) * (1 + 0.5 * np.cos(t / 9)),
+                      np.round(3 * np.sin(t / 2.0)) + 0.1 * rng.standard_normal(t.size)])
+    t9 = np.linspace(0.0, 20.0, 2048)
+    am9 = np.stack([(1 + 0.3 * np.sin(t9 / f)) * np.sin(2 * np.pi * f * t9)
+                    for f in (2.0, 3.0, 0.4)])
+    t, X, kw = {
+        # float64 rows at config 9's length fit in shared memory (147 KB);
+        # at N = 4096 (290 KB) they run in global scratch
+        "n2048": (t9, am9, {}),
+        "n4096": (np.linspace(0.0, 40.0, 4096), rng.standard_normal((2, 4096)), {}),
+        # too few maxima (the constant envelope), unit amplitude (done after
+        # one pass), rows that finish at different passes
+        "edges": (t, np.stack([np.cos(2 * np.pi * t / 64 * 0.6),
+                               np.sign(np.sin(2 * np.pi * 0.25 * t)), *tones]), {}),
+        "pad1": (t, tones, {"pad_width": 1}),
+        "pad3": (t, tones, {"pad_width": 3}),
+        "pad0": (t, tones, {"pad_width": 0}),
+        "n_iter": (t, tones, {"n_iter": 2}),
+        "thomas": (np.arange(40.0), rng.standard_normal((3, 40)), {}),
+        "short": (np.arange(2.0), np.ones((2, 2)), {}),
+    }[case]
+    return (torch.from_numpy(t).to(device, dtype),
+            torch.from_numpy(np.ascontiguousarray(X)).to(device, dtype), kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["n2048", "n4096", "edges", "pad1", "pad3", "pad0", "n_iter",
+                                  "thomas", "short"])
+def test_amfm_kernel_matches_plain_bit_for_bit(cuda, dtype, case):
+    from periodicity_tpu_torch.ops import hht
+
+    t, X, kw = _amfm_case(case, dtype, cuda)
+    before = hht.am_fm_normalize.launches
+    got = hht._am_fm_cuda(t, X, kw.get("n_iter", 10), kw.get("pad_width", 2), 1e-6)
+    assert hht.am_fm_normalize.launches == before + 1
+    want = hht.am_fm_normalize_plain(t, X, "spline", **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_one_amfm_launch_per_call(cuda):
+    """One N1 launch per normalization, whatever the batch; hht_batch is one
+    S1 launch and one N1 launch; HHT one N1 launch for all its modes."""
+    from periodicity_tpu_torch.ops import emd, hht
+    from periodicity_tpu_torch.timefrequency import HHT, hht_batch
+
+    t, X, _ = _amfm_case("pad1", torch.float64, cuda)
+    for fn in (lambda: hht.am_fm_normalize(t, X), lambda: hht.am_fm_normalize(t, X[None]),
+               lambda: hht.instant_frequency(t, X, method="NHT")):
+        before = hht.am_fm_normalize.launches
+        fn()
+        assert hht.am_fm_normalize.launches == before + 1
+    before = hht.am_fm_normalize.launches, emd.sift_machine.launches
+    hht_batch(t, X, np.linspace(0.05, 1.0, 16), max_modes=3)
+    assert (hht.am_fm_normalize.launches, emd.sift_machine.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    before = hht.am_fm_normalize.launches
+    HHT(np.linspace(0.05, 1.0, 16))(TSeries(t, X[0]))
+    assert hht.am_fm_normalize.launches == before + 1
+
+
+def test_amfm_kernel_raises_and_never_falls_back(cuda, monkeypatch):
+    """CPU tensors at the kernel entry, mixed devices, non-contiguous input
+    and a wrong dtype raise; a failed launch raises instead of returning
+    the plain version's result."""
+    from periodicity_tpu_torch.ops import hht
+
+    t, X, _ = _amfm_case("pad1", torch.float64, cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        hht._am_fm_cuda(t.cpu(), X.cpu(), 10, 2, 1e-6)
+    with pytest.raises(ValueError):
+        hht._am_fm_cuda(t.cpu(), X, 10, 2, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        hht._am_fm_cuda(t[::2].contiguous(), X[:, ::2], 10, 2, 1e-6)
+    with pytest.raises(TypeError):
+        hht._am_fm_cuda(t.half(), X.half(), 10, 2, 1e-6)
+
+    class Failing:
+        @staticmethod
+        def amfm_scratch_bytes(*args):
+            return 0
+
+        @staticmethod
+        def amfm_normalize_f64(*args):
+            return 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(_kernels, "load", lambda: Failing())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hht.am_fm_normalize(t, X)
+
+
+def test_timefrequency_on_card_matches_cpu(cuda):
+    """WPS (with its band averages), HHT (DQ on the spline normalization)
+    and hht_batch on the card against the CPU port in float64, within 1e-9
+    of the largest value."""
+    from periodicity_tpu_torch.timefrequency import HHT, WPS, hht_batch
+
+    t = np.linspace(0.0, 10.0, 512)
+    rng = np.random.default_rng(5)
+    ys = np.stack([np.sin(2 * np.pi * t * 3.0) + 0.5 * np.sin(2 * np.pi * t * 0.4),
+                   np.sin(2 * np.pi * t * 5.0) + 0.05 * rng.standard_normal(512)])
+    grid = np.linspace(0.1, 8.0, 32)
+
+    def close(a, b):
+        scale = max(float(b.abs().max()), 1e-300)
+        assert float((a.cpu() - b).abs().max()) <= 1e-9 * scale
+
+    w_card, w_cpu = WPS(np.geomspace(0.1, 3.0, 24)), WPS(np.geomspace(0.1, 3.0, 24))
+    close(w_card(TSeries(t, ys[0], device=cuda)).values,
+          w_cpu(TSeries(t, ys[0], device="cpu")).values)
+    close(w_card.gwps().values, w_cpu.gwps().values)
+    close(w_card.sav(0.2, 1.0).values, w_cpu.sav(0.2, 1.0).values)
+    h_card, h_cpu = HHT(grid), HHT(grid)
+    close(h_card(TSeries(t, ys[0], device=cuda)).values,
+          h_cpu(TSeries(t, ys[0], device="cpu")).values)
+    assert len(h_card.modes) == len(h_cpu.modes)
+    got = hht_batch(torch.from_numpy(t).to(cuda), torch.from_numpy(ys).to(cuda), grid, max_modes=4)
+    want = hht_batch(torch.from_numpy(t), torch.from_numpy(ys), grid, max_modes=4)
+    assert torch.equal(got[3].cpu(), want[3])
+    for a, b in zip(got[:3], want[:3]):
+        close(a, b)
