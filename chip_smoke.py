@@ -121,12 +121,33 @@ kernels, and checks every phase:
    CPU port in float64, with LMD's host reads. Phases 25-26 are this
    slice's main path: the counts of N1 and S1 are zeroed before it and
    both must have launched in it.
+27. the celerite kernels (``csrc/celerite.cu``: G1 the fused factor and
+   forward substitution, G2 its adjoint, G3 the two-sweep solve) against
+   their plain versions on the card, bit for bit: config 5's shape (64
+   walkers, N = 2148, the masked BrownianTerm, R = 6) in float32 and
+   float64, G3 at K = 1, 65 and 2148, and edge draws (a live SHO, R = 2; a
+   masked RotationTerm, R = 8; N = 2; a row whose D goes non-positive);
+   events and profiler times, the plain versions' wall times, the chain
+   bounds, and one dense ``torch.cholesky_solve`` of G3's system;
+28. config 5 (k = 10 chained batched evaluations, float32 and float64:
+   evals/s, launches an evaluation, busy share, peak memory) and config 7's
+   scan points (N = 1e4, 1e5, float32);
+29. config 8 (``run_ensemble`` on config 5's log-probability, 64 walkers x
+   50 steps, float32: walker-steps/s, busy share, launches a step), then 5
+   float64 steps on the card and on the CPU port from the same draws;
+30. ``BrownianGP`` and ``HarmonicGP`` on SpottedStar: ``minimize`` and
+   ``mcmc(16 walkers, 1000 steps)`` against the reference's thresholds, nll
+   and its gradient, predictions, PSDs and loocv against the CPU port;
+   ``QuasiPeriodicGP`` on tests/test_gp.py's draw against the CPU. Phase 30
+   is this slice's main path: the counts of G1, G2 and G3 are zeroed before
+   it and each must have launched in it.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (one GPU).
 Any failure raises and the exit code is non-zero. Phases 11-16 print
 their rates as one JSON line, phases 17-20 theirs as another, phases 21-22
-a ``{"decomposition": ...}`` line, phase 23 a ``{"cells": ...}`` line and
-phases 24-26 a ``{"timefrequency": ...}`` line; the line
+a ``{"decomposition": ...}`` line, phase 23 a ``{"cells": ...}`` line,
+phases 24-26 a ``{"timefrequency": ...}`` line and phases 27-30 a
+``{"gp": ...}`` line; the line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -256,14 +277,16 @@ def profiled(fn, reps=1, pad=PROFILER_PAD):
     in a ``record_function`` range, and their device work is found by the
     correlation ids of the runtime calls made in that range. Every kernel
     launched there must be in the window; a window that misses one is taken
-    again, up to three windows, and the run fails if the last misses any."""
+    again, opened with 4 and then 16 times as many untimed calls (a window
+    has dropped all of a 25-launch call after one such call), up to three
+    windows, and the run fails if the last misses any."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    for _ in range(3):
+    for opening in (pad, 4 * max(pad, 1), 16 * max(pad, 1)):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(pad):
+            for _ in range(opening):
                 fn()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -676,9 +699,11 @@ def main():
     t5 = time.perf_counter()
     kernels += timefrequency_slice(dev, card, cuda)
     t6 = time.perf_counter()
+    kernels += gp_slice(dev, card, cuda)
+    t7 = time.perf_counter()
     print(f"wall time: phases 1-6 {t0 - start:.1f} s, 7-10 {t1 - t0:.1f} s, 11-16 "
           f"{t2 - t1:.1f} s, 17-20 {t3 - t2:.1f} s, 21-22 {t4 - t3:.1f} s, 23 {t5 - t4:.1f} s, "
-          f"24-26 {t6 - t5:.1f} s")
+          f"24-26 {t6 - t5:.1f} s, 27-30 {t7 - t6:.1f} s")
     print(json_line({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -2637,6 +2662,508 @@ def timefrequency_slice(dev, card, cuda):
     print(json_line({"timefrequency": out}))
     return [rec]
 
+
+
+# the GP slice (phases 27-30): config 5 (benchmarks/run_benchmarks.py:260-
+# 300: SpottedStar, 64 walkers drawn uniform(0.8, 1.2) from default_rng(0),
+# BrownianTerm(0.01 w0, 20 w1, 10 w2, 0.3 w3), k = 10 chained batched
+# evaluations), config 7's scan points (:354-410: N = 1e4 and 1e5, float32,
+# BrownianTerm(0.01, 20, 10, 0.3), diag 0.01, k = 3) and config 8
+# (:460-500: run_ensemble on config 5's log-probability, 64 walkers x 50
+# steps, float32)
+C5_WALKERS, C5_K = 64, 10
+C7_NS, C7_K = (10_000, 100_000), 3
+C8_WALKERS, C8_STEPS = 64, 50
+# the reference's SpottedStar outcomes (tests/test_gp.py:108-142)
+GP_MIN_THRESHOLDS = {"BrownianGP": -12890.0, "HarmonicGP": -13180.0}
+GP_MCMC_PERIODS = {"BrownianGP": 10.0, "HarmonicGP": 11.0}
+
+
+def g1_chain_ops(r):
+    """Dependent operations of one step of the fused factor on its critical
+    path: W_{n-1} W_{n-1}^T, times D_{n-1}, plus S, times p p^T (4), Su and
+    u . Su (R each), D_n (1) and the division for W_n."""
+    return 4 + 2 * r + 1 + DIV_OPS
+
+
+def g2_chain_ops(r):
+    """The adjoint step's longest dependency: W-bar . W (R), a division, the
+    D-bar update, the Su-bar update (2), the S-bar update (3), times p p^T,
+    the R-deep q, and W-bar's update (3)."""
+    return r + DIV_OPS + 1 + 2 + 3 + 1 + r + 3
+
+
+def g3_chain_ops(r):
+    """One step of each sweep of the solve: the state update (3), the R-deep
+    dot product and the difference."""
+    return 2 * (3 + r + 1)
+
+
+def bit_equal(a, b):
+    """a and b equal bit for bit, NaN where the other is NaN."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    return (a.shape == b.shape and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a, 0.0), torch.nan_to_num(b, 0.0)))
+
+
+def c5_inputs(dev, dtype, n_walkers=C5_WALKERS):
+    """Config 5's (A, U, V, P, y) on the card: the walkers' BrownianTerm in
+    its masked form (R = 6), SpottedStar's times and mean-subtracted
+    values, dy^2 on the diagonal."""
+    import torch
+
+    from periodicity_tpu_torch import data as pdata
+    from periodicity_tpu_torch.models.gp.solver import _rows, celerite_matrices
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm
+
+    t, y, dy = pdata.SpottedStar()
+    w = torch.from_numpy(np.random.default_rng(0).uniform(0.8, 1.2, (n_walkers, 4))).to(dev, dtype)
+    tt, yy, diag = (torch.from_numpy(a).to(dev, dtype) for a in (t, y - y.mean(), dy**2))
+    term = BrownianTerm(0.01 * w[:, 0], 20.0 * w[:, 1], 10.0 * w[:, 2], 0.3 * w[:, 3])
+    (A, U, V, P, yb), _ = _rows(*celerite_matrices(term, tt, diag), yy)
+    return [x.contiguous() for x in (A, U, V, P, yb)], (w, tt, yy, diag)
+
+
+def gp_slice(dev, card, cuda):
+    """Phases 27-30: the celerite kernels against their plain versions,
+    configs 5, 7 and 8, and the GP modelers on SpottedStar. Prints the
+    ``{"gp": ...}`` line and returns the three kernels' JSON records."""
+    import torch
+
+    from periodicity_tpu_torch import TSeries
+    from periodicity_tpu_torch import data as pdata
+    from periodicity_tpu_torch.gp import BrownianGP, HarmonicGP, QuasiPeriodicGP
+    from periodicity_tpu_torch.models.gp import mcmc
+    from periodicity_tpu_torch.models.gp.solver import _rows, celerite_matrices, log_likelihood
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm, RotationTerm, SHOTerm
+    from periodicity_tpu_torch.ops import celerite as C
+
+    clock_hz = sm_clock_hz()
+    start = time.perf_counter()
+    out = {"card": card, "sm_clock_max_mhz": clock_hz / 1e6}
+    recs = {
+        name: {"name": name, "route": "cuda", "source": "periodicity_tpu_torch/csrc/celerite.cu",
+               "replaces": rep, "held": "bit-equal", "max_abs_err": 0.0}
+        for name, rep in (("celerite_forward", "periodicity_tpu/models/gp/solver.py:161"),
+                          ("celerite_adjoint", "periodicity_tpu/models/gp/solver.py:161"),
+                          ("celerite_solve", "periodicity_tpu/models/gp/solver.py:106"))
+    }
+
+    def both_forward(A, U, V, P, y, label):
+        got = C.celerite_forward(A, U, V, P, y, save=True)
+        want = C.celerite_forward_plain(A, U, V, P, y, save=True)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("D", "W", "z", "S_saved", "f_saved"), got, want):
+            if b is not None:
+                check(bit_equal(a, b), f"G1 vs plain, {name} not bit-equal ({label})")
+        return got
+
+    def both_adjoint(U, P, fwd, label):
+        D, W, z, S_saved, f_saved = fwd
+        # the adjoints the eager sums send back: ll = -(sum z^2/D + sum log D)/2
+        dz, dD = -z / D, -0.5 * (1 / D - z * z / (D * D))
+        got = C.celerite_adjoint(U, P, D, W, z, S_saved, f_saved, dD, dz)
+        want = C.celerite_adjoint_plain(U, P, D, W, z, S_saved, f_saved, dD, dz)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dA", "dU", "dV", "dP", "dy"), got, want):
+            check(bit_equal(a, b), f"G2 vs plain, {name} not bit-equal ({label})")
+        return (D, W, z, S_saved, f_saved, dD, dz)
+
+    def both_solve(U, P, D, W, Y, label):
+        got = C.celerite_solve(U, P, D, W, Y)
+        want = C.celerite_solve_plain(U, P, D, W, Y)
+        torch.cuda.synchronize()
+        check(bit_equal(got, want), f"G3 vs plain not bit-equal ({label})")
+        return got
+
+    # phase 27: G1, G2, G3 against their plain versions, bit for bit, at
+    # config 5's shape in float32 and float64 (the plain versions step
+    # through numpy on the host: no FMA), G3 at K = 1, 65, 2148; edge draws
+    rng = np.random.default_rng(27)
+    timed = {}
+    for dtype, pre in ((torch.float32, "f32_"), (torch.float64, "")):
+        (A, U, V, P, y), _ = c5_inputs(dev, dtype)
+        b, n, r = U.shape
+        check(r == 6, f"config 5's masked BrownianTerm has R = 6, got {r}")
+        fwd = both_forward(A, U, V, P, y, f"config 5, {dtype}")
+        adj = both_adjoint(U, P, fwd, f"config 5, {dtype}")
+        D, W = fwd[0], fwd[1]
+        for k in (1, 65, n):
+            both_solve(U[0], P[0], D[0], W[0],
+                       torch.from_numpy(rng.standard_normal((n, k))).to(dev, dtype),
+                       f"config 5 row 0, K = {k}, {dtype}")
+        timed[pre] = (A, U, V, P, y, adj, _)
+    edges = []
+    # a live SHO (R = 2); a masked RotationTerm over 3 rows (R = 8); N = 2; a
+    # row whose D goes non-positive (NaN for NaN)
+    t = np.sort(rng.uniform(0, 40, 300))
+    ys = rng.standard_normal(300)
+    for dtype in (torch.float64, torch.float32):
+        tt, yy = cuda(t).to(dtype), cuda(ys).to(dtype)
+        diag = torch.full_like(tt, 0.05)
+        per = torch.tensor([7.0, 3.0, 11.0], dtype=dtype, device=dev)
+        cases = [("live SHO, R = 2", SHOTerm(S0=1.3, w0=2.1, Q=3.0), tt, diag, yy),
+                 ("masked RotationTerm, R = 8, 3 rows",
+                  RotationTerm(sigma=1.2, period=per, Q0=2.0, dQ=1.0, f=0.4), tt, diag, yy),
+                 ("N = 2", SHOTerm(S0=1.3, w0=2.1, Q=3.0), tt[:2], diag[:2], yy[:2])]
+        for label, term, t_, d_, y_ in cases:
+            (A, U, V, P, y), _ = _rows(*celerite_matrices(term, t_, d_), y_)
+            A, U, V, P, y = (x.contiguous() for x in (A, U, V, P, y))
+            fwd = both_forward(A, U, V, P, y, f"{label}, {dtype}")
+            both_adjoint(U, P, fwd, f"{label}, {dtype}")
+            both_solve(U[0], P[0], fwd[0][0], fwd[1][0], y[0][:, None].contiguous(),
+                       f"{label}, {dtype}")
+            edges.append(label)
+        (A, U, V, P, y), _ = _rows(*celerite_matrices(SHOTerm(S0=1.3, w0=2.1, Q=3.0), tt, diag),
+                                   yy)
+        A = A.clone()
+        A[0, 40] = -1.0
+        fwd = both_forward(A, U.contiguous(), V.contiguous(), P.contiguous(), y.contiguous(),
+                           f"non-positive D, {dtype}")
+        check(bool((fwd[0][0] <= 0).any()), "the edited row's D goes non-positive")
+        both_adjoint(U.contiguous(), P.contiguous(), fwd, f"non-positive D, {dtype}")
+    edges = list(dict.fromkeys(edges)) + ["a row whose D goes non-positive"]
+    print(f"phase 27 G1/G2/G3 bit-equal to plain at config 5 (B={C5_WALKERS}, N={n}, R=6, f32 "
+          f"and f64; G3 at K = 1, 65, {n}) and edge draws ({'; '.join(edges)})")
+
+    # times at config 5's shape: events over back-to-back calls, the
+    # profiler's device time per call, the plain version's wall time (one
+    # call), the chain bound; G3 at K = N against one dense cholesky_solve
+    for pre, (A, U, V, P, y, adj, rows) in timed.items():
+        name = "float32" if pre else "float64"
+        elem = A.element_size()
+        b, n, r = U.shape
+        D, W, z, S_saved, f_saved, dD, dz = adj
+        g1 = lambda: C.celerite_forward(A, U, V, P, y, want_w=False)  # noqa: E731
+        g1s = lambda: C.celerite_forward(A, U, V, P, y, save=True)  # noqa: E731
+        g2 = lambda: C.celerite_adjoint(U, P, D, W, z, S_saved, f_saved, dD, dz)  # noqa: E731
+        Y = torch.from_numpy(rng.standard_normal((n, n))).to(dev, A.dtype)
+        g3 = lambda: C.celerite_solve(U[0], P[0], D[0], W[0], Y)  # noqa: E731
+        # the same system of row 0, dense: the walker's kernel at every lag
+        # plus the diagonal, factored once outside the timed call
+        w0, tt, _, diag = rows
+        term0 = BrownianTerm(0.01 * w0[0, 0], 20.0 * w0[0, 1], 10.0 * w0[0, 2], 0.3 * w0[0, 3])
+        Kd = term0.get_value(tt[:, None] - tt[None, :]) + torch.diag(diag)
+        Lc, _ = torch.linalg.cholesky_ex(Kd)
+        lib = lambda: torch.cholesky_solve(Y, Lc)  # noqa: E731
+        xs, xl = g3(), lib()
+        torch.cuda.synchronize()
+        rel3 = float((xs - xl).abs().max() / xl.abs().max())
+        g1r, g2r, g3r = recs["celerite_forward"], recs["celerite_adjoint"], recs["celerite_solve"]
+        g1r[f"{pre}ms"] = event_ms(g1, 20)
+        g1r[f"{pre}device_ms"] = device_us(g1, "celerite_forward_kernel", 5) / 1e3
+        g1r[f"{pre}save_ms"] = event_ms(g1s, 10)
+        g1r[f"{pre}plain_ms"] = plain_wall_ms(lambda: C.celerite_forward_plain(A, U, V, P, y))
+        # G1's library yardstick: one batched dense Cholesky of the 64
+        # walkers' K and the triangular solve for z (D = diag(L)^2 and
+        # L^-1 y, scaled), held against G1 through the log-likelihood
+        termb = BrownianTerm(0.01 * w0[:, 0], 20.0 * w0[:, 1], 10.0 * w0[:, 2], 0.3 * w0[:, 3])
+        Kb = termb.get_value(tt[:, None] - tt[None, :]) + torch.diag(diag)
+        yb = y[:, :, None]
+
+        def lib1(Kb=Kb, yb=yb):
+            Lb, info = torch.linalg.cholesky_ex(Kb)
+            return Lb, info, torch.linalg.solve_triangular(Lb, yb, upper=False)
+
+        Lb, info, zl = lib1()
+        dl = torch.diagonal(Lb, dim1=-2, dim2=-1)
+        ll_lib = -(zl[..., 0].square().sum(-1) + 2 * torch.log(dl).sum(-1))
+        Dk, _, zk, _, _ = g1()
+        ll_g1 = -(torch.sum(zk * zk / Dk, dim=-1) + torch.sum(torch.log(Dk), dim=-1))
+        ok = info == 0
+        rel1 = float(((ll_lib - ll_g1).abs() / ll_g1.abs())[ok].max())
+        g1r[f"{pre}library_ms"] = event_ms(lib1, 3)
+        g1r[f"{pre}library_failed_rows"] = int((~ok).sum())
+        g1r[f"{pre}library_vs_kernel_rel"] = rel1
+        del Kb, Lb, zl, termb
+        g1r[f"{pre}bound_ms"], g1r[f"{pre}bound_by"] = chain_bound(
+            elem * b * (n + 2 * n * r + (n - 1) * r + n + 2 * n), n * g1_chain_ops(r), name,
+            clock_hz)
+        g2r[f"{pre}ms"] = event_ms(g2, 10)
+        g2r[f"{pre}device_ms"] = device_us(g2, "celerite_adjoint_kernel", 5) / 1e3
+        g2r[f"{pre}plain_ms"] = plain_wall_ms(
+            lambda: C.celerite_adjoint_plain(U, P, D, W, z, S_saved, f_saved, dD, dz))
+        g2r[f"{pre}library_ms"] = None
+        kk = r * (r + 1) // 2
+        g2r[f"{pre}bound_ms"], g2r[f"{pre}bound_by"] = chain_bound(
+            elem * b * (n * r + (n - 1) * r + 3 * n + n * r + (n - 1) * (kk + r) + 2 * n
+                        + n + 2 * n * r + (n - 1) * r + n), n * g2_chain_ops(r), name, clock_hz)
+        g3r[f"{pre}ms"] = event_ms(g3, 5)
+        g3r[f"{pre}device_ms"] = device_us(g3, "celerite_solve_kernel", 3) / 1e3
+        g3r[f"{pre}plain_ms"] = plain_wall_ms(
+            lambda: C.celerite_solve_plain(U[0], P[0], D[0], W[0], Y))
+        g3r[f"{pre}library_ms"] = event_ms(lib, 5)
+        g3r[f"{pre}library_vs_kernel_rel"] = rel3
+        g3r[f"{pre}bound_ms"], g3r[f"{pre}bound_by"] = chain_bound(
+            elem * (3 * n * r + n + 2 * n * n), n * g3_chain_ops(r), name, clock_hz)
+        print(f"phase 27 {name}, config 5 (B={b}, N={n}, R={r}): G1 {g1r[pre + 'ms']:.4f} ms "
+              f"(device {g1r[pre + 'device_ms']:.4f}, saving state {g1r[pre + 'save_ms']:.4f}, "
+              f"plain {g1r[pre + 'plain_ms']:.1f}, bound {g1r[pre + 'bound_ms']:.4f} "
+              f"{g1r[pre + 'bound_by']}, batched dense cholesky_ex + solve_triangular "
+              f"{g1r[pre + 'library_ms']:.4f} ms, ll rel diff {rel1:.1e}, "
+              f"{g1r[pre + 'library_failed_rows']} rows not positive definite); G2 "
+              f"{g2r[pre + 'ms']:.4f} ms (device "
+              f"{g2r[pre + 'device_ms']:.4f}, plain {g2r[pre + 'plain_ms']:.1f}, bound "
+              f"{g2r[pre + 'bound_ms']:.4f}); G3 K={n} {g3r[pre + 'ms']:.4f} ms (device "
+              f"{g3r[pre + 'device_ms']:.4f}, plain {g3r[pre + 'plain_ms']:.1f}, dense "
+              f"cholesky_solve {g3r[pre + 'library_ms']:.4f} ms, rel diff {rel3:.1e}, bound "
+              f"{g3r[pre + 'bound_ms']:.4f})  ({card})")
+    for rec in recs.values():
+        rec["shape"] = ("config 5: 64 walkers x N = 2148, the masked BrownianTerm (R = 6), "
+                        "float64 unprefixed and float32 under f32_; G3 one row with K = N "
+                        "right-hand sides")
+    t27 = time.perf_counter()
+
+    # phase 28: config 5, k = 10 chained batched evaluations, each feeding
+    # the next; f32 (as JAX's benchmark ran it) and f64. Config 7's scan
+    # points: N = 1e4 and 1e5 in f32 (the pscan and blocked points wait for
+    # slice A7b)
+    c5 = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        _, (w0, tt, yy, diag) = c5_inputs(dev, dtype)
+
+        def evaluate(ws, tt=tt, yy=yy, diag=diag):
+            term = BrownianTerm(0.01 * ws[:, 0], 20.0 * ws[:, 1], 10.0 * ws[:, 2],
+                                0.3 * ws[:, 3])
+            return log_likelihood(term, tt, diag, yy)
+
+        def chained(k=C5_K, w0=w0, evaluate=evaluate):
+            ws, acc = w0, torch.zeros((), dtype=w0.dtype, device=dev)
+            for _ in range(k):
+                lls = evaluate(ws)
+                ws = ws + lls[:, None] * 1e-12
+                acc = acc + lls[0]
+            return acc
+
+        with torch.no_grad():
+            lls = evaluate(w0)
+            check(bool(torch.isfinite(lls).all()), f"config 5 {name}: finite log-likelihoods")
+            chained(1)
+            ms = statistics.median(event_ms(chained, 1) for _ in range(3)) / C5_K
+            work, wall = profiled(lambda: evaluate(w0), pad=2)
+            busy = sum(us for _, us in work) / 1e6
+            mem = peak_bytes(lambda: evaluate(w0))
+        c5[name] = {"ms_per_batch": ms, "evals_per_s": C5_WALKERS / (ms / 1e3),
+                    "launches_per_eval": len(work), "busy_share": busy / wall,
+                    "peak_mib": mem / 2**20}
+        print(f"phase 28 config 5 {name}: {c5[name]['evals_per_s']:.4e} evals/s ({ms:.3f} ms a "
+              f"batch of {C5_WALKERS}), {len(work)} device launches an evaluation, busy "
+              f"{busy / wall:.1%}, peak {mem / 2**20:.1f} MiB  ({card})")
+    out["config5"] = c5
+    c7 = {}
+    rng7 = np.random.default_rng(0)
+    with torch.no_grad():
+        for n7 in C7_NS:
+            t7 = np.sort(rng7.uniform(0, 1000.0, n7)).astype(np.float32)
+            y7 = (np.sin(2 * np.pi * t7 / 20.0) + 0.1 * rng7.standard_normal(n7)).astype(
+                np.float32)
+            tt, yy = cuda(t7), cuda(y7 - y7.mean())
+            diag = torch.full_like(tt, 0.01)
+            term = BrownianTerm(0.01, 20.0, 10.0, 0.3)
+
+            def chained7(tt=tt, yy=yy, diag=diag, term=term):
+                y0, acc = yy, torch.zeros((), dtype=torch.float32, device=dev)
+                for _ in range(C7_K):
+                    ll = log_likelihood(term, tt, diag, y0)
+                    y0 = y0 + ll * 1e-12
+                    acc = acc + ll
+                return acc
+
+            ll7 = float(chained7())
+            check(math.isfinite(ll7), f"config 7 N={n7}: finite")
+            ms7 = statistics.median(event_ms(chained7, 1) for _ in range(2)) / C7_K
+            ar, _, ac = term.coefficients()[:3]
+            r7 = ar.shape[-1] + 2 * ac.shape[-1]
+            c7[f"scan_N{n7}"] = {"ms": ms7, "evals_per_s": 1e3 / ms7, "R": r7,
+                                 "chain_bound_ms": chain_bound(0, n7 * g1_chain_ops(r7),
+                                                               "float32", clock_hz)[0]}
+            print(f"phase 28 config 7 scan N={n7} (f32, R={r7}, live): {ms7:.3f} ms an "
+                  f"evaluation, chain bound {c7[f'scan_N{n7}']['chain_bound_ms']:.3f} ms  "
+                  f"({card})")
+    out["config7"] = c7
+    t28 = time.perf_counter()
+
+    # phase 29: config 8, run_ensemble on config 5's log-probability in
+    # float32 (64 walkers x 50 steps); then 5 steps in float64 on the card
+    # and on the CPU port from the same draws
+    def c8_log_prob(tt, yy, diag):
+        def log_prob(ws):
+            term = BrownianTerm(0.01 * ws[:, 0], 20.0 * ws[:, 1], 10.0 * ws[:, 2],
+                                0.3 * ws[:, 3])
+            ll = log_likelihood(term, tt, diag, yy)
+            return torch.where(torch.isfinite(ll), ll, -1e25)
+        return log_prob
+
+    t, y, dy = pdata.SpottedStar()
+    x8 = np.random.default_rng(0).uniform(0.9, 1.1, (C8_WALKERS, 4))
+    with torch.no_grad():
+        tt, yy, diag = (cuda(a).float() for a in (t, y - y.mean(), dy**2))
+        lp8 = c8_log_prob(tt, yy, diag)
+        x0 = cuda(x8).float()
+        mcmc.run_ensemble(lp8, x0, 0, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lps8, acc8 = mcmc.run_ensemble(lp8, x0, 0, C8_STEPS)
+        torch.cuda.synchronize()
+        s8 = time.perf_counter() - t0
+        check(bool(torch.isfinite(lps8).all()) and 0 < acc8 < 1, "config 8: finite, accepting")
+        work, wall = profiled(lambda: mcmc.run_ensemble(lp8, x0, 0, 2), pad=1)
+        busy8 = sum(us for _, us in work) / 1e6 / wall
+        # 5 float64 steps on the card and on the CPU port, from one set of draws
+        draws = []
+        rng8 = np.random.default_rng(8)
+        half = C8_WALKERS // 2
+        for _ in range(5):
+            draws.append([(rng8.random(half), rng8.integers(0, half, half), rng8.random(half))
+                          for _ in range(2)])
+        runs = {}
+        for where in ("cuda", "cpu"):
+            put = (lambda a: cuda(a)) if where == "cuda" else torch.from_numpy
+            lp = c8_log_prob(*(put(a) for a in (t, y - y.mean(), dy**2)))
+            x = put(x8)
+            lpx = lp(x)
+            xs, accs = [], []
+            for d in draws:
+                dd = tuple(tuple(put(np.asarray(a)) for a in h) for h in d)
+                x, lpx, acc = mcmc.stretch_step(lp, x, lpx, dd)
+                xs.append(x.cpu())
+                accs.append(acc.cpu())
+            runs[where] = (torch.stack(xs), torch.stack(accs))
+    check(torch.equal(runs["cuda"][1], runs["cpu"][1]),
+          "config 8 f64: accept decisions card vs CPU")
+    rel8 = float(((runs["cuda"][0] - runs["cpu"][0]).abs() / runs["cpu"][0].abs()).max())
+    check(rel8 <= 1e-12, f"config 8 f64: positions card vs CPU {rel8:.3e} > 1e-12")
+    out["config8"] = {"walker_steps_per_s": C8_WALKERS * C8_STEPS / s8, "seconds": s8,
+                      "acceptance": acc8, "busy_share": busy8,
+                      "launches_per_step": len(work) / 2, "f64_cpu_rel": rel8}
+    print(f"phase 29 config 8 (64 walkers x {C8_STEPS} steps, f32): "
+          f"{out['config8']['walker_steps_per_s']:.4e} walker-steps/s ({s8:.3f} s), acceptance "
+          f"{acc8:.3f}, busy {busy8:.1%}, {len(work) / 2:.0f} device launches a step; 5 f64 "
+          f"steps card vs CPU: accepts equal, positions within {rel8:.1e}  ({card})")
+    t29 = time.perf_counter()
+
+    # phase 30, the slice's main path, counted from zero: BrownianGP and
+    # HarmonicGP on SpottedStar (minimize, mcmc as the reference runs it),
+    # nll and its gradient, predictions, loocv and PSDs against the CPU
+    # port; QuasiPeriodicGP on tests/test_gp.py's draw
+    C.celerite_forward.launches = 0
+    C.celerite_adjoint.launches = 0
+    C.celerite_solve.launches = 0
+    modelers = {}
+    rng30 = np.random.default_rng(30)
+    for cls in (BrownianGP, HarmonicGP):
+        name = cls.__name__
+        m = cls(TSeries(cuda(t), cuda(y)), err=cuda(dy))
+        mc = cls(TSeries(t, y, device="cpu"), err=torch.from_numpy(dy))
+        t0 = time.perf_counter()
+        soln, gp = m.minimize(m.gp)
+        torch.cuda.synchronize()
+        s_min = time.perf_counter() - t0
+        check(soln.fun < GP_MIN_THRESHOLDS[name] and np.all((soln.x >= 0.01) & (soln.x <= 99.99)),
+              f"{name}.minimize: fun {soln.fun} < {GP_MIN_THRESHOLDS[name]}, x in the box")
+        t0 = time.perf_counter()
+        trace, _ = m.mcmc(n_walkers=16, n_steps=1000, burn=200, random_seed=42)
+        s_mcmc = time.perf_counter() - t0
+        median = float(np.median(trace["period"]))
+        check(trace["period"].shape == (16 * 800,) and round(median) == GP_MCMC_PERIODS[name],
+              f"{name}.mcmc: median period {median} rounds to {GP_MCMC_PERIODS[name]}")
+        # nll and its gradient at 5 hypercube points, card against CPU
+        d_nll = d_grad = 0.0
+        for u in rng30.uniform(5, 95, (5, m.ndim)):
+            vals = []
+            for mm, put in ((m, cuda), (mc, torch.from_numpy)):
+                uu = put(u).requires_grad_(True)
+                f = mm._nll_u(uu)
+                (g,) = torch.autograd.grad(f, uu)
+                vals.append((float(f.detach()), g.cpu()))
+            d_nll = max(d_nll, abs(vals[0][0] - vals[1][0]) / abs(vals[1][0]))
+            d_grad = max(d_grad, float((vals[0][1] - vals[1][1]).abs().max()
+                                       / vals[1][1].abs().max()))
+        check(d_nll <= 1e-10 and d_grad <= 1e-10,
+              f"{name}: nll {d_nll:.2e} and gradient {d_grad:.2e} card vs CPU > 1e-10")
+        params = m.prior_transform(soln.x)
+        gpc = mc.set_params({k: v.cpu() for k, v in params.items()}, mc.gp)
+        tn = np.linspace(t[0] - 2, t[-1] + 2, 200)
+        f_psd = np.linspace(0.01, 2, 100)
+        diffs = {}
+        for label, a, b in (
+                ("prediction", torch.stack(m.get_prediction(tn, gp)),
+                 torch.stack(mc.get_prediction(tn, gpc))),
+                ("psd", m.get_psd(f_psd, gp), mc.get_psd(f_psd, gpc)),
+                ("loocv", m.loocv(gp), mc.loocv(gpc))):
+            diffs[label] = float((a.cpu() - b).abs().max() / b.abs().max())
+            # a sum of N terms each within an ulp or so of the CPU's
+            check(diffs[label] <= 1e-9, f"{name} {label} card vs CPU {diffs[label]:.2e}")
+        modelers[name] = {"minimize_fun": soln.fun, "minimize_s": s_min,
+                          "mcmc_median_period": median, "mcmc_s": s_mcmc,
+                          "mcmc_acceptance": m.acceptance, "nll_rel": d_nll, "grad_rel": d_grad,
+                          **{f"{k}_rel": v for k, v in diffs.items()}}
+        print(f"phase 30 {name}: minimize {soln.fun:.3f} ({s_min:.2f} s), mcmc 16 x 1000 median "
+              f"period {median:.3f} ({s_mcmc:.2f} s, acceptance {m.acceptance:.3f}); card vs CPU "
+              f"nll {d_nll:.1e}, gradient {d_grad:.1e}, "
+              + ", ".join(f"{k} {v:.1e}" for k, v in diffs.items()) + f"  ({card})")
+    rngq = np.random.default_rng(42)
+    tq = np.linspace(0, 10, 120)
+    yq = np.sin(np.pi * tq) + 0.1 * rngq.standard_normal(120)
+    eq = np.full(120, 0.1)
+    qc = QuasiPeriodicGP(TSeries(cuda(tq), cuda(yq)), cuda(eq))
+    qh = QuasiPeriodicGP(TSeries(tq, yq, device="cpu"), torch.from_numpy(eq))
+    nll0 = qc.nll(qc.theta0)
+    d_q = abs(nll0 - qh.nll(qh.theta0)) / abs(qh.nll(qh.theta0))
+    check(d_q <= 1e-10, f"QuasiPeriodicGP nll card vs CPU {d_q:.2e}")
+    # the call users make, from the default theta0, with the reference's
+    # checks (tests/test_gp.py:144-160); the card and the CPU port from that
+    # start are recorded side by side, not held to each other
+    s0c, _ = qc.minimize()
+    s0h, _ = qh.minimize()
+    mu0, sd0 = qc.predict(s0c.x, tq[:10])
+    check(s0c.fun <= nll0 and bool(torch.isfinite(mu0).all()) and bool((sd0 >= 0).all()),
+          f"QuasiPeriodicGP minimize from theta0: fun {s0c.fun} <= nll0 {nll0}, finite "
+          f"prediction, sd >= 0")
+    d0_fun = abs(s0c.fun - s0h.fun) / abs(s0h.fun)
+    d0_x = float(np.abs(np.asarray(s0c.x) - np.asarray(s0h.x)).max())
+    # from a start near the injected period
+    theta = np.array([0.0, np.log(0.01), np.log(0.5), np.log(25.0), 2.0, np.log(2.0)])
+    qc.set_params(theta)
+    qh.set_params(theta)
+    sq, _ = qc.minimize()
+    sh, _ = qh.minimize()
+    d_min = abs(sq.fun - sh.fun) / abs(sh.fun)
+    check(sq.fun <= qc.nll(theta) and d_min <= 1e-8,
+          f"QuasiPeriodicGP minimize card {sq.fun} vs CPU {sh.fun}")
+    mu_c, sd_c = qc.predict(theta, tq[:10])
+    mu_h, sd_h = qh.predict(theta, tq[:10])
+    d_pred = float(max((mu_c.cpu() - mu_h).abs().max() / mu_h.abs().max(),
+                       (sd_c.cpu() - sd_h).abs().max() / sd_h.abs().max()))
+    check(bool(torch.isfinite(mu_c).all()) and d_pred <= 1e-9,
+          f"QuasiPeriodicGP predict card vs CPU {d_pred:.2e}")
+    modelers["QuasiPeriodicGP"] = {
+        "nll_rel": d_q, "minimize_fun": sq.fun, "minimize_rel": d_min, "predict_rel": d_pred,
+        "theta0_nll": nll0, "theta0_minimize_fun": s0c.fun, "theta0_minimize_fun_cpu": s0h.fun,
+        "theta0_minimize_x": [float(v) for v in s0c.x],
+        "theta0_minimize_x_cpu": [float(v) for v in s0h.x], "theta0_fun_rel": d0_fun,
+        "theta0_x_max_abs": d0_x}
+    print(f"phase 30 QuasiPeriodicGP: nll card vs CPU {d_q:.1e}; minimize from theta0 "
+          f"{s0c.fun:.6f} (nll0 {nll0:.6f}; CPU {s0h.fun:.6f}, rel {d0_fun:.1e}, x max abs "
+          f"diff {d0_x:.1e}); from near the period {sq.fun:.6f} (CPU within {d_min:.1e}); "
+          f"predict card vs CPU {d_pred:.1e}  ({card})")
+    t30 = time.perf_counter()
+    launches = {"celerite_forward": C.celerite_forward.launches,
+                "celerite_adjoint": C.celerite_adjoint.launches,
+                "celerite_solve": C.celerite_solve.launches}
+    check(all(v > 0 for v in launches.values()), f"G1, G2 and G3 launched on the main path: "
+          f"{launches}")
+    for name, rec in recs.items():
+        rec["launches"] = launches[name]
+    out["modelers"] = modelers
+    out["main_path_launches"] = launches
+    out["wall_s"] = {"27": t27 - start, "28": t28 - t27, "29": t29 - t28, "30": t30 - t29}
+    print(f"phase 30 main path: {launches['celerite_forward']} G1, "
+          f"{launches['celerite_adjoint']} G2 and {launches['celerite_solve']} G3 launches")
+    print(json_line({"gp": out}))
+    return list(recs.values())
 
 if __name__ == "__main__":
     sys.exit(main())

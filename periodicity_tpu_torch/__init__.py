@@ -9,22 +9,25 @@ and harmonic terms; batched GLS; MultibandGLS; BGLST) and the
 phase-folding estimators (BLS, AoV, ConditionalEntropy, GregoryLoredo,
 PDM, StringLength); the decompositions (EMD, LMD, CEEMDAN, VMD); the
 time-frequency estimators (WPS, HHT, CompositeSpectrum, denoising and
-their batches). Non-tensor inputs land on the card unless
-``device="cpu"`` is asked for. Module layout mirrors the JAX package::
+their batches); GP period inference (celerite terms and solver, the
+dense quasi-periodic GP, the ensemble sampler, L-BFGS, period priors).
+Non-tensor inputs land on the card unless ``device="cpu"`` is asked for. Module layout mirrors the JAX package::
 
     periodicity_tpu_torch.core       TSeries / FSeries / TFSeries, from_jax
     periodicity_tpu_torch.spectral   GLS, MultibandGLS, BGLST (+ their scans)
     periodicity_tpu_torch.phase      BLS, AoV, PDM, ... (+ their scans)
     periodicity_tpu_torch.decomposition  EMD, LMD, CEEMDAN, VMD
     periodicity_tpu_torch.timefrequency  WPS, HHT, CompositeSpectrum, denoise
-    periodicity_tpu_torch.ops        trig sums, spreading, fold, recursion and
-                                     sift and AM/FM normalization kernels,
-                                     peaks, filters, splines, optimizers,
+    periodicity_tpu_torch.gp         BrownianGP, HarmonicGP, QuasiPeriodicGP,
+                                     celerite terms, run_ensemble, priors
+    periodicity_tpu_torch.ops        trig sums, spreading, fold, recursion,
+                                     sift, AM/FM normalization and celerite
+                                     kernels, peaks, filters, splines, optimizers,
                                      EMD and LMD sifting, wavelets, HHT
     periodicity_tpu_torch.data       bundled datasets and signal generators
 """
 
-from . import core, data, decomposition, ops, phase, spectral
+from . import core, data, decomposition, gp, ops, phase, spectral
 from . import timefrequency
 from .core import FSeries, TFSeries, TSeries
 
@@ -32,4 +35,4 @@ __version__ = "0.1.0"
 name = "periodicity_tpu_torch"
 
 __all__ = ["TSeries", "FSeries", "TFSeries", "core", "spectral", "phase", "decomposition",
-           "timefrequency", "ops", "data"]
+           "timefrequency", "gp", "ops", "data"]

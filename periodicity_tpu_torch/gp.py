@@ -1,0 +1,51 @@
+"""Alias module mirroring the reference's import path (``periodicity.gp``).
+
+Every name of ``periodicity_tpu/gp.py`` that the port has: the modelers,
+``GaussianProcess``, the terms, ``log_likelihood``, ``run_ensemble``, the
+chain diagnostics and the priors. Left for later slices of the port, and
+not exported here: ``log_likelihood_pscan``, ``log_likelihood_blocked``,
+``log_likelihood_chunked`` and ``run_nuts`` (slice A7b), and
+``log_likelihood_sharded`` (slice A8).
+"""
+
+from .models.gp import (
+    BrownianGP,
+    BrownianTerm,
+    CeleriteModeler,
+    GaussianProcess,
+    GeorgeModeler,
+    HarmonicGP,
+    QuasiPeriodicGP,
+    RotationTerm,
+    SHOTerm,
+    Term,
+    TermSum,
+    autocorr_time,
+    ess,
+    log_likelihood,
+    make_gaussian_prior,
+    make_ppf,
+    rhat,
+    run_ensemble,
+)
+
+__all__ = [
+    "GeorgeModeler",
+    "CeleriteModeler",
+    "QuasiPeriodicGP",
+    "BrownianGP",
+    "HarmonicGP",
+    "GaussianProcess",
+    "Term",
+    "TermSum",
+    "SHOTerm",
+    "RotationTerm",
+    "BrownianTerm",
+    "log_likelihood",
+    "run_ensemble",
+    "autocorr_time",
+    "ess",
+    "rhat",
+    "make_gaussian_prior",
+    "make_ppf",
+]

@@ -1,2 +1,2 @@
-"""Estimator method families: spectral, phase folding, decomposition and
-time-frequency."""
+"""Estimator method families: spectral, phase folding, decomposition,
+time-frequency and GP period inference."""

@@ -61,6 +61,15 @@ ENTRY_POINTS = {
     "amfm_normalize_f64": [_P] * 2 + [_I] * 4 + [_D] + [_P] * 5,
     # n, pad_width, element size -> global scratch bytes a row needs
     "amfm_scratch_bytes": [_I] * 3,
+    # A, U, V, P, y, b, n, r, D, W, z, s_saved, f_saved, stream (null pointers skip)
+    "celerite_forward_f32": [_P] * 5 + [_I] * 3 + [_P] * 6,
+    "celerite_forward_f64": [_P] * 5 + [_I] * 3 + [_P] * 6,
+    # U, P, D, W, z, s_saved, f_saved, dD, dz, b, n, r, dA, dU, dV, dP, dy, stream
+    "celerite_adjoint_f32": [_P] * 9 + [_I] * 3 + [_P] * 6,
+    "celerite_adjoint_f64": [_P] * 9 + [_I] * 3 + [_P] * 6,
+    # U, P, D, W, Y, n, r, k, X, stream
+    "celerite_solve_f32": [_P] * 5 + [_I] * 3 + [_P] * 2,
+    "celerite_solve_f64": [_P] * 5 + [_I] * 3 + [_P] * 2,
 }
 
 _LIB = None

@@ -1,4 +1,5 @@
-"""Auxiliary subsystems: structured logging and dtype rules."""
+"""Auxiliary subsystems: structured logging, dtype rules and sampler
+checkpoints."""
 
 from .logging import get_logger, log_event, set_verbosity
 

@@ -1,8 +1,9 @@
 """The CUDA kernels (the spreading kernel through both of its entry points,
-the phase fold, the two recursions, the sift and the AM/FM normalization)
-against their plain versions, and the GLS, batched GLS, bootstrap,
-rest-of-spectral, BLS, container, decomposition and time-frequency paths,
-on the card; float32 results independent of the TF32 switches.
+the phase fold, the two recursions, the sift, the AM/FM normalization and
+the three celerite recursions) against their plain versions, and the GLS,
+batched GLS, bootstrap, rest-of-spectral, BLS, container, decomposition,
+time-frequency and GP paths, on the card; float32 results independent of
+the TF32 switches.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the device and
 skips where there is none. Run on a GPU machine without the repo's
@@ -926,3 +927,213 @@ def test_timefrequency_on_card_matches_cpu(cuda):
     assert torch.equal(got[3].cpu(), want[3])
     for a, b in zip(got[:3], want[:3]):
         close(a, b)
+
+
+def _celerite_draw(b, n, r, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.uniform(2, 4, (b, n)), 0.3 * rng.standard_normal((b, n, r)),
+              0.3 * rng.standard_normal((b, n, r)), rng.uniform(0.5, 1, (b, n - 1, r)),
+              rng.standard_normal((b, n)))
+    return [torch.from_numpy(a).to(device, dtype).contiguous() for a in arrays]
+
+
+def _bits(a, b):
+    a, b = a.cpu(), b.cpu()
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, 0.0), torch.nan_to_num(b, 0.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", [2, 4, 6, 8])
+@pytest.mark.parametrize("b,n", [(3, 1), (2, 2), (33, 257), (8, 2148)])
+def test_celerite_kernels_match_plain_bit_for_bit(cuda, dtype, r, b, n):
+    from periodicity_tpu_torch.ops import celerite as C
+
+    A, U, V, P, y = _celerite_draw(b, n, r, dtype, cuda, r * 1000 + n)
+    if n > 5:
+        A[0, 4] = -1.0  # a row whose D goes non-positive
+    got = C.celerite_forward(A, U, V, P, y, save=True)
+    want = C.celerite_forward_plain(A, U, V, P, y, save=True)
+    assert all(_bits(a, w) for a, w in zip(got, want))
+    D, W, z, S_saved, f_saved = got
+    rng = np.random.default_rng(n)
+    dD, dz = (torch.from_numpy(rng.standard_normal((b, n))).to(cuda, dtype) for _ in range(2))
+    for a, w in zip(C.celerite_adjoint(U, P, D, W, z, S_saved, f_saved, dD, dz),
+                    C.celerite_adjoint_plain(U, P, D, W, z, S_saved, f_saved, dD, dz)):
+        assert _bits(a, w)
+    row = b - 1
+    for k in (1, 65):
+        Y = torch.from_numpy(rng.standard_normal((n, k))).to(cuda, dtype)
+        assert _bits(C.celerite_solve(U[row], P[row], D[row], W[row], Y),
+                     C.celerite_solve_plain(U[row], P[row], D[row], W[row], Y))
+
+
+def test_one_celerite_launch_per_call_and_factor_without_rhs(cuda):
+    from periodicity_tpu_torch.ops import celerite as C
+
+    A, U, V, P, y = _celerite_draw(4, 100, 6, torch.float64, cuda, 1)
+    f0, a0, s0 = C.celerite_forward.launches, C.celerite_adjoint.launches, C.celerite_solve.launches
+    D, W, z, S_saved, f_saved = C.celerite_forward(A, U, V, P, y, save=True)
+    D2, W2, z2, none1, none2 = C.celerite_forward(A, U, V, P)
+    assert z2 is None and none1 is None and none2 is None
+    assert torch.equal(D, D2) and torch.equal(W, W2)
+    C.celerite_adjoint(U, P, D, W, z, S_saved, f_saved, torch.ones_like(D), torch.ones_like(D))
+    C.celerite_solve(U[0], P[0], D[0], W[0], torch.ones(100, 3, dtype=torch.float64, device=cuda))
+    C.celerite_solve(U[0], P[0], D[0], W[0], torch.ones(100, dtype=torch.float64, device=cuda))
+    assert C.celerite_forward.launches == f0 + 2
+    assert C.celerite_adjoint.launches == a0 + 1
+    assert C.celerite_solve.launches == s0 + 2
+
+
+def test_celerite_kernels_raise_and_never_fall_back(cuda, monkeypatch):
+    from periodicity_tpu_torch.ops import _kernels
+    from periodicity_tpu_torch.ops import celerite as C
+
+    A, U, V, P, y = _celerite_draw(2, 50, 9, torch.float64, cuda, 3)
+    with pytest.raises(ValueError, match="1 to 8"):
+        C.celerite_forward(A, U, V, P, y)
+    with pytest.raises(ValueError, match="1 to 8"):
+        C.celerite_solve(U[0], P[0], A[0], U[0], y[0])
+    A, U, V, P, y = _celerite_draw(2, 50, 4, torch.float64, cuda, 3)
+    with pytest.raises(ValueError):
+        C.celerite_forward(A.float(), U, V, P, y)
+    with pytest.raises(ValueError):
+        C.celerite_forward(A, U, V, P[:, :10], y)
+
+    class Failing:
+        @staticmethod
+        def celerite_forward_f64(*args):
+            return 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(_kernels, "load", lambda: Failing())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        C.celerite_forward(A, U, V, P, y)
+
+
+def test_gp_likelihood_gradient_on_card_matches_cpu(cuda):
+    """The likelihood and its gradient through G1 and G2 on the card against
+    the CPU port, batched over walkers, within 1e-10 relative."""
+    from periodicity_tpu_torch.models.gp.solver import log_likelihood
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm, RotationTerm
+
+    t, y, dy = SpottedStar()
+    w = np.random.default_rng(0).uniform(0.8, 1.2, (5, 4))
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        p = torch.from_numpy(w).to(device).requires_grad_(True)
+        tt, yy, dd = (torch.from_numpy(a).to(device) for a in (t, y - y.mean(), dy**2))
+        ll = (log_likelihood(BrownianTerm(0.01 * p[:, 0], 20 * p[:, 1], 10 * p[:, 2],
+                                          0.3 * p[:, 3]), tt, dd, yy)
+              + log_likelihood(RotationTerm(sigma=0.01 * p[:, 0], period=10 * p[:, 2], Q0=p[:, 1],
+                                            dQ=p[:, 3], f=0.3), tt, dd, yy))
+        (g,) = torch.autograd.grad(ll.sum(), p)
+        out[device.type] = (ll.detach().cpu(), g.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-10
+
+
+def test_gp_arrays_land_on_card_and_card_tensors_stay_there(cuda):
+    """Arrays with no device go to the card and launch G1 there; a term of
+    CPU tensors follows card times to the card; a term on the card never
+    meets CPU times, and card times never meet CPU residuals: both raise."""
+    from periodicity_tpu_torch.models.gp.solver import GaussianProcess, log_likelihood
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm, SHOTerm
+    from periodicity_tpu_torch.ops import celerite as C
+
+    t, y, dy = SpottedStar()
+    t, y, dy = t[:300], y[:300] - y[:300].mean(), dy[:300]
+    C.celerite_forward.launches = 0
+    ll = log_likelihood(SHOTerm(S0=1e-4, w0=0.6, Q=3.0), t, dy**2, y)
+    assert ll.device.type == "cuda" and C.celerite_forward.launches == 1
+    gp = GaussianProcess(BrownianTerm(0.01, 20.0, 10.0, 0.3)).compute(t, yerr=dy)
+    assert gp._t.device.type == "cuda" and gp.log_likelihood(y).device.type == "cuda"
+    assert gp.predict(y, t=t[:5]).device.type == "cuda"
+    term = BrownianTerm(0.01, 20.0, 10.0, 0.3)
+    assert term.get_value(t[:5]).device.type == "cuda"
+    assert term.get_psd(t[:5]).device.type == "cuda"
+    tt, yy, dd = (torch.from_numpy(a).to(cuda) for a in (t, y, dy**2))
+    cpu_term = BrownianTerm(torch.tensor([0.01, 0.02], dtype=torch.float64), 20.0, 10.0, 0.3)
+    C.celerite_forward.launches = 0
+    assert log_likelihood(cpu_term, tt, dd, yy).device.type == "cuda"
+    assert C.celerite_forward.launches == 1
+    card_term = BrownianTerm(torch.tensor([0.01, 0.02], dtype=torch.float64, device=cuda), 20.0,
+                             10.0, 0.3)
+    with pytest.raises(ValueError, match="move one of them"):
+        log_likelihood(card_term, tt.cpu(), dd.cpu(), yy.cpu())
+    with pytest.raises(ValueError, match="expected a tensor on cuda"):
+        log_likelihood(term, tt, dd, yy.cpu())
+
+
+def test_qpgp_reference_checks_on_card_from_theta0(cuda):
+    """Reference tests/test_gp.py:144-160 on the card: minimize from the
+    default theta0 ends at or below nll(theta0), and the prediction there is
+    finite with sd >= 0."""
+    from periodicity_tpu_torch.gp import QuasiPeriodicGP
+
+    rng = np.random.default_rng(42)
+    t = np.linspace(0, 10, 120)
+    y = np.sin(np.pi * t) + 0.1 * rng.standard_normal(120)
+    model = QuasiPeriodicGP(TSeries(t, y, device=cuda), np.full(120, 0.1))
+    nll0 = model.nll(model.theta0)
+    assert np.isfinite(nll0)
+    soln, _ = model.minimize()
+    assert soln.fun <= nll0
+    mu, sd = model.predict(soln.x, t[:10])
+    assert mu.device.type == "cuda" and bool(torch.isfinite(mu).all())
+    assert bool((sd >= 0).all())
+
+
+@pytest.mark.parametrize("name", ["BrownianGP", "HarmonicGP"])
+def test_gp_modelers_reference_thresholds_on_card(cuda, name):
+    """Reference tests/test_gp.py:24-58 on the card: minimize below the
+    threshold inside the box; mcmc(16, 1000, burn 200, seed 42) with the
+    median period rounding to 10 (BrownianGP) and 11 (HarmonicGP)."""
+    from periodicity_tpu_torch import gp
+
+    t, y, dy = SpottedStar()
+    model = getattr(gp, name)(TSeries(t, y, device=cuda), err=dy)
+    soln, _ = model.minimize(model.gp)
+    assert soln.fun < {"BrownianGP": -12890, "HarmonicGP": -13180}[name]
+    assert np.all((soln.x <= 99.99) & (soln.x >= 0.01))
+    trace, _ = model.mcmc(n_walkers=16, n_steps=1000, burn=200, random_seed=42)
+    assert trace["period"].shape == (16 * 800,)
+    assert np.round(np.median(trace["period"]), 0) == {"BrownianGP": 10.0, "HarmonicGP": 11.0}[name]
+
+
+def test_gp_modelers_on_card_match_cpu(cuda):
+    """nll, log_prob (batched), predictions, PSD and loocv of BrownianGP and
+    HarmonicGP, and QuasiPeriodicGP's nll and prediction, card against the
+    CPU port in float64."""
+    from periodicity_tpu_torch.gp import BrownianGP, HarmonicGP, QuasiPeriodicGP
+
+    t, y, dy = SpottedStar()
+    n = 400
+    t, y, dy = t[:n], y[:n], dy[:n]
+    rng = np.random.default_rng(9)
+
+    def close(a, b, tol=1e-10):
+        a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b)
+        assert float((a - b).abs().max()) <= tol * max(float(b.abs().max()), 1e-300)
+
+    for cls in (BrownianGP, HarmonicGP):
+        mc = cls(TSeries(t, y, device=cuda), err=dy)
+        mh = cls(TSeries(t, y, device="cpu"), err=torch.from_numpy(dy))
+        U = rng.uniform(5, 95, (4, mc.ndim))
+        close(mc._log_prob_u(torch.from_numpy(U).to(cuda)), mh._log_prob_u(torch.from_numpy(U)))
+        assert mc.nll(U[0]) == pytest.approx(mh.nll(U[0]), rel=1e-10)
+        gc = mc.set_params(dict(mc.prior_transform(U[1])), mc.gp)
+        gh = mh.set_params(dict(mh.prior_transform(U[1])), mh.gp)
+        tn = np.linspace(t[0], t[-1], 50)
+        for a, b in zip(mc.get_prediction(tn, gc), mh.get_prediction(tn, gh)):
+            close(a, b, 1e-9)
+        close(mc.get_psd(np.linspace(0.01, 2, 30), gc), mh.get_psd(np.linspace(0.01, 2, 30), gh))
+        close(mc.loocv(gc), mh.loocv(gh), 1e-9)
+    tq = np.linspace(0, 10, 120)
+    yq = np.sin(np.pi * tq) + 0.1 * np.random.default_rng(42).standard_normal(120)
+    qc = QuasiPeriodicGP(TSeries(tq, yq, device=cuda), np.full(120, 0.1))
+    qh = QuasiPeriodicGP(TSeries(tq, yq, device="cpu"), torch.full((120,), 0.1,
+                                                                   dtype=torch.float64))
+    assert qc.nll(qc.theta0) == pytest.approx(qh.nll(qh.theta0), rel=1e-10)
+    theta = np.array([0.0, np.log(0.01), np.log(0.5), np.log(25.0), 2.0, np.log(2.0)])
+    for a, b in zip(qc.predict(theta, tq[:10]), qh.predict(theta, tq[:10])):
+        close(a, b, 1e-9)
