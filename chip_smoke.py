@@ -141,13 +141,34 @@ kernels, and checks every phase:
    ``QuasiPeriodicGP`` on tests/test_gp.py's draw against the CPU. Phase 30
    is this slice's main path: the counts of G1, G2 and G3 are zeroed before
    it and each must have launched in it.
+31. the blocked Kalman composition (``csrc/kalman.cu``, K1) against its
+   plain version on the card, bit for bit: R = 1..8 in float32 and
+   float64, from the identity and from an incoming carry, block counts that
+   divide N and that do not; at config 7's blocked shapes (one row, the
+   live BrownianTerm, R = 4, f32, N = 1e4 and 1e5) its events and profiler
+   times by stage, the plain version's wall time, the chain bound and, at
+   N = 1e4, one dense ``cholesky_ex`` + ``solve_triangular`` of K;
+32. config 7's solver points in f32 (scan, pscan and blocked at N = 1e4
+   and 1e5, chunked at N = 1e6): ms an evaluation over k = 3 chained
+   evaluations, launches, busy share, peak memory, the log-likelihood
+   against the f64 scan on the card; every solver in f64 at N = 1e4 within
+   1e-10 of the scan, and the gradients of blocked and chunked equal to
+   the scan's;
+33. config 13 (``run_nuts`` on SpottedStar's BrownianTerm posterior, f32, 4
+   chains, depth 6, 40 steps after 60 warmup: grad-evals/s, divergences,
+   min ESS, max R-hat, launches a leapfrog, busy share; 2, 8 and 16 chains
+   at depth 4), ``BrownianGP.nuts`` on the JAX package's synthetic rotator
+   with its assertions, the modelers' pscan, blocked and chunked solvers
+   against the scan on SpottedStar, and ``QuasiPeriodicGP.nuts``. Phases
+   32-33 are this slice's main path: the counts of K1, G1 and G2 are
+   zeroed before it and each must have launched in it.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (one GPU).
 Any failure raises and the exit code is non-zero. Phases 11-16 print
 their rates as one JSON line, phases 17-20 theirs as another, phases 21-22
 a ``{"decomposition": ...}`` line, phase 23 a ``{"cells": ...}`` line,
-phases 24-26 a ``{"timefrequency": ...}`` line and phases 27-30 a
-``{"gp": ...}`` line; the line
+phases 24-26 a ``{"timefrequency": ...}`` line, phases 27-30 a
+``{"gp": ...}`` line and phases 31-33 a ``{"kalman": ...}`` line; the line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -701,9 +722,11 @@ def main():
     t6 = time.perf_counter()
     kernels += gp_slice(dev, card, cuda)
     t7 = time.perf_counter()
+    kernels += kalman_slice(dev, card, cuda)
+    t8 = time.perf_counter()
     print(f"wall time: phases 1-6 {t0 - start:.1f} s, 7-10 {t1 - t0:.1f} s, 11-16 "
           f"{t2 - t1:.1f} s, 17-20 {t3 - t2:.1f} s, 21-22 {t4 - t3:.1f} s, 23 {t5 - t4:.1f} s, "
-          f"24-26 {t6 - t5:.1f} s, 27-30 {t7 - t6:.1f} s")
+          f"24-26 {t6 - t5:.1f} s, 27-30 {t7 - t6:.1f} s, 31-33 {t8 - t7:.1f} s")
     print(json_line({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -3164,6 +3187,559 @@ def gp_slice(dev, card, cuda):
           f"{launches['celerite_adjoint']} G2 and {launches['celerite_solve']} G3 launches")
     print(json_line({"gp": out}))
     return list(recs.values())
+
+
+# the Kalman slice (phases 31-33): config 7's solver points
+# (benchmarks/run_benchmarks.py:354-457 and _gp1e6_probe.py: one row,
+# BrownianTerm(0.01, 20, 10, 0.3) live (R = 4), float32, t uniform over 1000
+# days, y = sin(2 pi t / 20) + 0.1 noise, diag 0.01, k = 3 chained
+# evaluations; blocked with n_blocks = max(min(N // 256, 512), 16), chunked at
+# N = 1e6 with chunk 65536 and 512 inner blocks) and config 13 (:705-805:
+# run_nuts on SpottedStar's BrownianTerm posterior, float32, 4 chains, depth
+# 6, 40 steps after 60 warmup; 2, 8 and 16 chains at depth 4, 10 + 20)
+C7_SOLVER_NS = (10_000, 100_000)
+C7_CHUNKED_N, C7_CHUNK, C7_INNER = 1_000_000, 65536, 512
+C13_CHAINS, C13_DEPTH, C13_STEPS, C13_WARMUP = 4, 6, 40, 60
+C13_SCALING = (2, 8, 16)
+# the JAX package's NUTS checks on its synthetic rotator (tests/test_nuts.py:
+# 76-129): BrownianGP.nuts and QuasiPeriodicGP.nuts on every third sample
+ROTATOR_NUTS = dict(n_chains=2, n_steps=300, n_warmup=300, burn=50, max_depth=6,
+                    random_seed=42)
+QP_NUTS = dict(n_chains=2, n_steps=100, n_warmup=150, burn=25, max_depth=5, random_seed=0)
+# the JAX package's float32 characterization of the scan against float64
+# (tests/test_gp.py:199-233, at N <= 8192), held at N = 1e4. Beyond it the
+# float32 scan of either package exceeds it (ROADMAP C5), so a longer series
+# holds every float32 solver within a fixed limit of the float64 scan: above
+# the largest reading of the sound solvers over C7_F32_SEEDS and of the JAX
+# package's own float32 scan (tests/test_torch_gp_float32.py), and below the
+# control, one lost carry (c7_lost_carry), which the run also measures. Every
+# solver is held in float64 as well.
+F32_LL_REL = 1e-5
+F32_LL_REL_LONG = {100_000: 1e-4, 1_000_000: 2e-3}
+F64_LL_REL = 1e-10
+C7_F32_SEEDS = (1, 2, 3, 4, 5)
+
+
+def c7_blocks(n):
+    return max(min(n // 256, 512), 16)
+
+
+def c7_series(rng, n):
+    """Config 7's float32 light curve of n samples from ``rng``: (t, y - mean)."""
+    t = np.sort(rng.uniform(0, 1000.0, n)).astype(np.float32)
+    y = (np.sin(2 * np.pi * t / 20.0) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    return t, y - y.mean()
+
+
+def c7_lost_carry(term, t, diag, y, bound, n_blocks):
+    """The control of the float32 limits: the blocked likelihood of config
+    7's series with the carry dropped at sample ``bound`` (K1 from the
+    identity there, as if one chunk's carry were lost), the stretches on
+    either side over ``n_blocks`` blocks."""
+    import torch
+
+    from periodicity_tpu_torch.models.gp import pscan
+    from periodicity_tpu_torch.utils.dtypes import full_float32
+
+    coeffs, tt, dd, yy, batch = pscan._prepared(term, t, diag, y)
+    with torch.no_grad(), full_float32():
+        dt = torch.cat([tt.new_zeros(1), torch.diff(tt)])
+        lo, _ = pscan._k1(coeffs, dt[:bound], dd[..., :bound], yy[..., :bound], batch, n_blocks,
+                          True, None)
+        hi, _ = pscan._k1(coeffs, dt[bound:], dd[..., bound:], yy[..., bound:], batch, n_blocks,
+                          False, None)
+    return lo + hi
+
+
+def k1_chain_ops(r):
+    """Dependent operations of one composition on its critical path, from
+    the carry's C to the next carry's C (csrc/kalman.cu::combine): the R-deep
+    sums of I + J C and the identity (R + 1); the elimination's R - 1
+    columns, a division, a product and a difference each; the back
+    substitution, a division and then R - 1 rows of a product, a difference
+    and a division; C's two R-deep products and its sum (2 R + 1)."""
+    return (r + 1) + 2 * (r - 1) * (DIV_OPS + 2) + DIV_OPS + 2 * r + 1
+
+
+K1_SLOTS = {1: (1, 0), 2: (0, 1), 3: (1, 1), 4: (2, 1), 5: (1, 2), 6: (2, 2), 7: (3, 2),
+            8: (4, 2)}
+
+
+def k1_draw(rng, r, b, n, dtype):
+    """K1's operands for b rows of n samples of a random SHO-family term
+    with R = r states (K1_SLOTS real and complex slots, b = a c / d as an
+    SHO's), step 0 the stationary prior: (coeffs, dt, A, Q, H, diag, y) on
+    the CPU."""
+    import torch
+
+    from periodicity_tpu_torch.models.gp import pscan
+
+    jr, jc = K1_SLOTS[r]
+    u = lambda lo, hi, k: torch.from_numpy(rng.uniform(lo, hi, (b, k))).to(dtype)  # noqa: E731
+    ar, cr, ac, cc, dc = u(0.2, 1.5, jr), u(0.05, 2.0, jr), u(0.2, 1.5, jc), u(0.05, 1.0, jc), \
+        u(0.3, 3.0, jc)
+    coeffs = (ar, cr, ac, ac * cc / dc, cc, dc)
+    t = torch.from_numpy(np.sort(rng.uniform(0, 30, n))).to(dtype)
+    dt = torch.cat([t.new_zeros(1), torch.diff(t)])
+    A, Pinf, H = pscan._ssm_from_dt(coeffs, dt)
+    A, Q = pscan._process_noise(A, Pinf)
+    diag = torch.from_numpy(rng.uniform(0.01, 0.1, (b, n))).to(dtype)
+    y = torch.from_numpy(rng.standard_normal((b, n))).to(dtype)
+    return coeffs, dt, A, Q, H, diag, y
+
+
+def kalman_slice(dev, card, cuda):
+    """Phases 31-33: K1 against its plain version, config 7's solver points,
+    config 13 and the NUTS and solver paths of the modelers. Prints the
+    ``{"kalman": ...}`` line and returns K1's JSON record."""
+    import torch
+
+    from periodicity_tpu_torch import TSeries
+    from periodicity_tpu_torch import data as pdata
+    from periodicity_tpu_torch.gp import (BrownianGP, QuasiPeriodicGP, log_likelihood,
+                                          log_likelihood_blocked, log_likelihood_chunked,
+                                          log_likelihood_pscan, run_nuts)
+    from periodicity_tpu_torch.models.gp import mcmc, pscan
+    from periodicity_tpu_torch.models.gp.nuts import _value_and_grad
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm
+    from periodicity_tpu_torch.ops import celerite as C
+    from periodicity_tpu_torch.ops import kalman as K
+    from periodicity_tpu_torch.utils.dtypes import full_float32
+
+    clock_hz = sm_clock_hz()
+    start = time.perf_counter()
+    out = {"card": card, "sm_clock_max_mhz": clock_hz / 1e6}
+    rec = {"name": "kalman_blocked", "route": "cuda",
+           "source": "periodicity_tpu_torch/csrc/kalman.cu",
+           "replaces": "periodicity_tpu/models/gp/pscan.py:333", "held": "bit-equal",
+           "max_abs_err": 0.0}
+
+    def held(args, nb, carry, got, label):
+        """K1's result ``got`` bit-equal to the plain version's on the CPU
+        copies of its operands."""
+        want = K.kalman_blocked_plain(*(x.cpu() for x in args), nb,
+                                      None if carry is None else tuple(c.cpu() for c in carry))
+        torch.cuda.synchronize()
+        for name, a, w in zip(("mu", "s", "A", "b", "C", "eta", "J"),
+                              (got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+            check(bit_equal(a, w), f"K1 vs plain, {name} not bit-equal ({label})")
+
+    def both(args, nb, carry, label):
+        got = K.kalman_blocked(*(x.to(dev) for x in args), nb,
+                               None if carry is None else tuple(c.to(dev) for c in carry))
+        held(args, nb, carry, got, label)
+
+    # phase 31: K1 against its plain version, bit for bit, at R = 1..8 in
+    # both dtypes, from the identity and from an incoming carry, at block
+    # counts that divide N and that do not (and more blocks than samples)
+    rng = np.random.default_rng(31)
+    cases = 0
+    for r in K1_SLOTS:
+        for dtype in (torch.float64, torch.float32):
+            for b, n, nb in ((3, 1001, 7), (2, 64, 8), (1, 5, 16)):
+                coeffs, dt, A, Q, H, diag, y = k1_draw(rng, r, b, n, dtype)
+                args = [x.contiguous() for x in (A, Q, H, diag, y)]
+                both(args, nb, None, f"R = {r}, {dtype}, B={b}, N={n}, {nb} blocks")
+                # the same stretch continuing a series: the carry of a first
+                # stretch, no stationary prior at step 0
+                _, _, carry = K.kalman_blocked_plain(*args, 3)
+                Ac = pscan._ssm_from_dt(coeffs, dt)[0]
+                Qc = pscan._noise(Ac, pscan._ssm_from_dt(coeffs, dt)[1])
+                both([x.contiguous() for x in (Ac, Qc, H, diag, y)], nb, carry,
+                     f"R = {r}, {dtype}, B={b}, N={n}, {nb} blocks, with a carry")
+                cases += 2
+    print(f"phase 31 K1 bit-equal to plain in {cases} cases: R = 1..8, f32 and f64, B = 1..3, "
+          f"N = 5, 64, 1001 over 7, 8 and 16 blocks, from the identity and from a carry")
+
+    # K1 bit-equal to plain at the main path's own shapes, on the operands
+    # that the solvers hand it: config 7's chunked point at N = 1e6 in f32
+    # and f64 (one row; the first chunk, 65536 samples over 512 blocks; the
+    # second, from the carry the first hands on; the last, 16960 samples),
+    # and the modelers' blocked and chunked solvers on SpottedStar (f64;
+    # BrownianTerm live, R = 4, under nll, and masked, R = 6, where u needs
+    # a gradient, as in minimize and nuts: 2148 samples over 64 blocks;
+    # chunks of 2048 and, from its carry, 100 samples over 512 blocks)
+    calls = []
+
+    def recorded(*args):
+        got = K.kalman_blocked(*args)
+        calls.append((args, got))
+        return got
+
+    ts, ys, dys = pdata.SpottedStar()
+    t7, y7 = c7_series(np.random.default_rng(0), C7_CHUNKED_N)
+    term = BrownianTerm(0.01, 20.0, 10.0, 0.3)
+    main_shapes = []
+    pscan.kalman_blocked = recorded
+    try:
+        for dtype in (torch.float32, torch.float64):
+            tt, yy = cuda(t7).to(dtype), cuda(y7).to(dtype)
+            calls.clear()
+            log_likelihood_chunked(term, tt, torch.full_like(tt, 0.01), yy, chunk=C7_CHUNK,
+                                   inner_blocks=C7_INNER)
+            check(len(calls) == 16, f"config 7's chunked point makes 16 K1 calls: {len(calls)}")
+            for i in (0, 1, len(calls) - 1):
+                (A, Q, H, d, yb, nb, carry), got = calls[i]
+                check((i == 0) == (carry is None), f"chunk {i} takes the carry of the one before")
+                label = f"config 7 chunk {i}, {dtype}, N={A.shape[1]}, {nb} blocks"
+                held((A, Q, H, d, yb), nb, carry, got, label)
+                main_shapes.append(label)
+        for solver in ("blocked", "chunked"):
+            m = BrownianGP(TSeries(cuda(ts), cuda(ys)), err=cuda(dys), solver=solver)
+            calls.clear()
+            m.nll(np.full(6, 50.0))
+            m._nll_u(torch.full((6,), 50.0, dtype=m.dtype, device=dev, requires_grad=True))
+            check(len(calls) == (2 if solver == "blocked" else 4),
+                  f"BrownianGP(SpottedStar, solver={solver!r}) K1 calls: {len(calls)}")
+            for i, ((A, Q, H, d, yb, nb, carry), got) in enumerate(calls):
+                label = (f"BrownianGP(SpottedStar, solver={solver!r}) call {i}, {A.dtype}, "
+                         f"R={A.shape[-1]}, N={A.shape[1]}, {nb} blocks"
+                         + (", from a carry" if carry is not None else ""))
+                held((A, Q, H, d, yb), nb, carry, got, label)
+                main_shapes.append(label)
+    finally:
+        pscan.kalman_blocked = K.kalman_blocked
+    calls.clear()
+    out["k1_main_path_shapes_bit_equal"] = main_shapes
+    print("phase 31 K1 bit-equal to plain at the main path's shapes: " + "; ".join(main_shapes))
+
+    # times at config 7's blocked shapes: events, the profiler's device time
+    # by stage, the plain version's wall time, the bound; at N = 1e4 one
+    # dense cholesky_ex + solve_triangular of the same K
+    rng7 = np.random.default_rng(0)
+    for n in C7_SOLVER_NS:
+        pre = f"N{n}_"
+        t7, y7 = c7_series(rng7, n)
+        tt, yy = cuda(t7), cuda(y7)
+        diag = torch.full_like(tt, 0.01)
+        nb = c7_blocks(n)
+        with full_float32():
+            coeffs, tc, dd, yc, batch = pscan._prepared(term, tt, diag, yy)
+            dtc = torch.cat([tc.new_zeros(1), torch.diff(tc)])
+            A, Q, H, d, yb = pscan._k1_inputs(coeffs, dtc, dd, yc, batch, True)
+        r = H.shape[0]
+        check(r == 4, f"config 7's live BrownianTerm has R = 4, got {r}")
+        fn = lambda: K.kalman_blocked(A, Q, H, d, yb, nb)  # noqa: E731
+        got = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = K.kalman_blocked_plain(A, Q, H, d, yb, nb)
+        torch.cuda.synchronize()
+        rec[f"{pre}plain_ms"] = (time.perf_counter() - t0) * 1e3
+        for name, a, w in zip(("mu", "s"), got[:2], want[:2]):
+            check(bit_equal(a, w), f"K1 vs plain at config 7 N={n}: {name} not bit-equal")
+        rec[f"{pre}ms"] = event_ms(fn, 10)
+        work, _ = profiled(fn, reps=3)
+        stages = {}
+        for name, us in work:
+            if "kalman" in name:
+                stage = name.split("kalman_")[1].split("_kernel")[0]
+                stages[stage] = stages.get(stage, 0.0) + us / 3 / 1e3
+        check(sorted(stages) == ["carry", "innovation", "summary"] and sum(
+            1 for w_ in work if "kalman" in w_[0]) == 9, f"K1's three stages in 3 calls: {work}")
+        rec[f"{pre}device_ms"] = sum(stages.values())
+        rec[f"{pre}stage_device_ms"] = stages
+        length = -(-n // nb)
+        rec[f"{pre}bound_ms"], rec[f"{pre}bound_by"] = chain_bound(
+            4 * n * (2 * r * r + 4), (2 * length + nb) * k1_chain_ops(r), "float32", clock_hz)
+        rec[f"{pre}n_blocks"] = nb
+        if n == C7_SOLVER_NS[0]:
+            with full_float32():
+                Kd = term.get_value(tt[:, None] - tt[None, :]) + torch.diag(diag)
+
+                def lib(Kd=Kd, yy=yy):
+                    L, info = torch.linalg.cholesky_ex(Kd)
+                    return L, info, torch.linalg.solve_triangular(L, yy[:, None], upper=False)
+
+                L, info, z = lib()
+                ll_lib = -0.5 * (float(z.square().sum()) + 2 * float(torch.log(
+                    torch.diagonal(L)).sum()) + n * math.log(2 * math.pi))
+                ll_k1 = float(pscan._innovation_sum(yb, got[0], got[1])[0])
+                rec[f"{pre}library_ms"] = event_ms(lib, 3)
+                rec[f"{pre}library_info"] = int(info)
+                rec[f"{pre}library_vs_kernel_rel"] = abs(ll_lib - ll_k1) / abs(ll_k1)
+            del Kd, L, z
+        else:
+            rec[f"{pre}library_ms"] = None
+            rec[f"{pre}library_note"] = "none (dense K does not fit: 40 GB in f32)"
+        print(f"phase 31 K1 at config 7 N={n} (1 row, R=4, {nb} blocks, f32): events "
+              f"{rec[pre + 'ms']:.4f} ms, device {rec[pre + 'device_ms']:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+              + f"), plain {rec[pre + 'plain_ms']:.1f} ms, bound {rec[pre + 'bound_ms']:.4f} ms "
+              f"{rec[pre + 'bound_by']}"
+              + (f", dense cholesky_ex + solve_triangular {rec[pre + 'library_ms']:.3f} ms "
+                 f"(ll rel {rec[pre + 'library_vs_kernel_rel']:.1e})"
+                 if rec[pre + "library_ms"] is not None else ", no library call (dense K does "
+                 "not fit)") + f"  ({card})")
+    for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        rec[key] = rec[f"N{C7_SOLVER_NS[0]}_{key}"]
+    rec["shape"] = ("config 7's blocked points, one row, live BrownianTerm (R = 4), f32: "
+                    "unprefixed N = 1e4 (39 blocks), also under N10000_; N100000_ N = 1e5 "
+                    "(390 blocks)")
+    t31 = time.perf_counter()
+
+    solvers = {
+        "scan": log_likelihood, "pscan": log_likelihood_pscan,
+        "blocked": lambda term, t, d, y: log_likelihood_blocked(term, t, d, y,
+                                                                n_blocks=c7_blocks(t.shape[0])),
+        "chunked": lambda term, t, d, y: log_likelihood_chunked(term, t, d, y, chunk=C7_CHUNK,
+                                                                inner_blocks=C7_INNER),
+    }
+    # phase 32 begins, before the main path's counts start, with config 7's
+    # float32 accuracy over C7_F32_SEEDS: each solver of a fresh draw of
+    # N = 1e5 and 1e6 samples against the float64 scan of the same draw,
+    # and the control, one lost carry (at the middle of 1e5, at the first
+    # chunk's end of 1e6), against the same scan
+    f32_long = {C7_SOLVER_NS[1]: ("scan", "pscan", "blocked"), C7_CHUNKED_N: ("scan", "chunked")}
+    readings, controls = {}, {}
+    with torch.no_grad():
+        for seed in C7_F32_SEEDS:
+            for n, names in f32_long.items():
+                t7, y7 = c7_series(np.random.default_rng(seed), n)
+                tt, yy = cuda(t7), cuda(y7)
+                diag = torch.full_like(tt, 0.01)
+                ref = float(log_likelihood(term, tt.double(), diag.double(), yy.double()))
+                for name in names:
+                    ll = float(solvers[name](term, tt, diag, yy))
+                    readings.setdefault(f"{name}_N{n}", []).append(abs(ll - ref) / abs(ref))
+                bound, nb = (n // 2, c7_blocks(n)) if n != C7_CHUNKED_N else (C7_CHUNK, C7_INNER)
+                ll = float(c7_lost_carry(term, tt, diag, yy, bound, nb))
+                controls.setdefault(f"N{n}", []).append(abs(ll - ref) / abs(ref))
+    out["config7_f32_seeds"] = {"seeds": list(C7_F32_SEEDS), "rel_vs_f64_scan": readings,
+                                "lost_carry_rel": controls}
+    for n in f32_long:
+        worst = max(max(v) for k, v in readings.items() if k.endswith(f"_N{n}"))
+        limit = F32_LL_REL_LONG[n]
+        check(worst <= limit < min(controls[f"N{n}"]),
+              f"config 7 f32 N={n} over seeds {C7_F32_SEEDS}: the limit {limit} lies above every "
+              f"sound reading (largest {worst:.3e}) and below every lost carry "
+              f"({min(controls[f'N{n}']):.3e})")
+        print(f"phase 32 config 7 f32 N={n} over seeds {list(C7_F32_SEEDS)}, rel to the f64 scan: "
+              + "; ".join(f"{k.split('_N')[0]} " + ", ".join(f"{x:.3e}" for x in v)
+                          for k, v in readings.items() if k.endswith(f"_N{n}"))
+              + "; one lost carry " + ", ".join(f"{x:.3e}" for x in controls[f"N{n}"])
+              + f"; the limit {limit}  ({card})")
+
+    # the slice's main path (K1, G1 and G2 counted from zero to the end of
+    # phase 33): config 7's solver points in f32, k = 3 chained
+    # evaluations, against the f64 scan on the card; f64 at N = 1e4 for
+    # every solver; the gradient of blocked and chunked
+    K.kalman_blocked.launches = 0
+    C.celerite_forward.launches = 0
+    C.celerite_adjoint.launches = 0
+    c7 = {}
+    rng7 = np.random.default_rng(0)
+    points = [(n, name) for n in C7_SOLVER_NS for name in ("scan", "pscan", "blocked")]
+    points += [(C7_CHUNKED_N, "scan"), (C7_CHUNKED_N, "chunked")]
+    series = {}
+    with torch.no_grad():
+        for n, name in points:
+            if n not in series:
+                series[n] = c7_series(rng7 if n != C7_CHUNKED_N else np.random.default_rng(0), n)
+            t7, y7 = series[n]
+            tt, yy = cuda(t7), cuda(y7)
+            diag = torch.full_like(tt, 0.01)
+            fn = solvers[name]
+            ref = float(log_likelihood(term, tt.double(), diag.double(), yy.double()))
+            ll64 = float(fn(term, tt.double(), diag.double(), yy.double()))
+
+            def chained(fn=fn, tt=tt, yy=yy, diag=diag):
+                y0, acc = yy, torch.zeros((), dtype=torch.float32, device=dev)
+                for _ in range(C7_K):
+                    ll = fn(term, tt, diag, y0)
+                    y0 = y0 + ll * 1e-12
+                    acc = acc + ll
+                return acc
+
+            ll = float(fn(term, tt, diag, yy))
+            rel = abs(ll - ref) / abs(ref)
+            chained()
+            ms = statistics.median(event_ms(chained, 1) for _ in range(2)) / C7_K
+            work, wall = profiled(lambda fn=fn, tt=tt, diag=diag, yy=yy: fn(term, tt, diag, yy),
+                                  pad=1)
+            busy = sum(us for _, us in work) / 1e6 / wall
+            mem = peak_bytes(lambda fn=fn, tt=tt, diag=diag, yy=yy: fn(term, tt, diag, yy))
+            c7[f"{name}_N{n}"] = {"ms": ms, "evals_per_s": 1e3 / ms, "launches_per_eval": len(work),
+                                  "busy_share": busy, "peak_mib": mem / 2**20, "ll": ll,
+                                  "ll_f64_scan": ref, "rel_vs_f64_scan": rel, "ll_f64": ll64,
+                                  "f64_rel_vs_f64_scan": abs(ll64 - ref) / abs(ref)}
+            print(f"phase 32 config 7 {name} N={n} (f32): {ms:.3f} ms an evaluation, "
+                  f"{len(work)} device launches, busy {busy:.1%}, peak {mem / 2**20:.1f} MiB; "
+                  f"ll {ll:.2f} vs f64 scan {ref:.2f} (rel {rel:.2e}; the solver in f64 "
+                  f"{c7[f'{name}_N{n}']['f64_rel_vs_f64_scan']:.1e})  ({card})")
+    out["config7"] = c7
+    # every solver in f64 within 1e-10 of the f64 scan at every N; in f32
+    # within JAX's characterization at N = 1e4, within the fixed limits
+    # beyond
+    for key, v in c7.items():
+        check(v["f64_rel_vs_f64_scan"] <= F64_LL_REL,
+              f"config 7 {key} in f64: rel {v['f64_rel_vs_f64_scan']:.2e} to the f64 scan > "
+              f"{F64_LL_REL}")
+        n = int(key.split("_N")[1])
+        limit = F32_LL_REL if n == C7_SOLVER_NS[0] else F32_LL_REL_LONG[n]
+        check(v["rel_vs_f64_scan"] <= limit,
+              f"config 7 {key}: f32 ll rel {v['rel_vs_f64_scan']:.2e} to the f64 scan > {limit}")
+    # float64 at N = 1e4: every solver within 1e-10 of the scan; the
+    # gradient of blocked and chunked is the scan's
+    t7, y7 = series[C7_SOLVER_NS[0]]
+    tt, yy = cuda(t7).double(), cuda(y7).double()
+    diag = torch.full_like(tt, 0.01)
+    p = torch.tensor([0.01, 20.0, 10.0, 0.3], dtype=torch.float64, device=dev)
+    f64 = {}
+    grads = {}
+    for name, fn in solvers.items():
+        pg = p.clone().requires_grad_(True)
+        ll = fn(BrownianTerm(pg[0], pg[1], pg[2], pg[3]), tt, diag, yy)
+        (grads[name],) = torch.autograd.grad(ll, pg)
+        f64[name] = float(ll.detach())
+    for name in solvers:
+        rel = abs(f64[name] - f64["scan"]) / abs(f64["scan"])
+        check(rel <= F64_LL_REL, f"config 7 f64 N=1e4: {name} {f64[name]} vs scan {f64['scan']}")
+    for name in ("blocked", "chunked"):
+        check(torch.equal(grads[name], grads["scan"]),
+              f"the gradient of {name} is the scan's: {grads[name]} vs {grads['scan']}")
+    g_rel = float(((grads["pscan"] - grads["scan"]).abs() / grads["scan"].abs()).max())
+    out["config7_f64_N10000"] = {"ll": f64, "pscan_grad_rel": g_rel}
+    print(f"phase 32 f64 N=1e4: pscan, blocked, chunked within "
+          f"{max(abs(v - f64['scan']) / abs(f64['scan']) for v in f64.values()):.1e} of the scan; "
+          f"blocked and chunked gradients equal the scan's, pscan's (autograd) within {g_rel:.1e}")
+    t32 = time.perf_counter()
+
+    # phase 33: config 13, run_nuts on SpottedStar's BrownianTerm posterior
+    # (f32, 4 chains, depth 6, 40 + 60 warmup), the chain-scaling block;
+    # BrownianGP.nuts on JAX's synthetic rotator (tests/test_nuts.py:76-105)
+    # with its assertions; the modelers' pscan, blocked and chunked solvers
+    # against the scan on SpottedStar (f64); QuasiPeriodicGP.nuts
+    # (tests/test_nuts.py:109-129)
+    tt, yy, diag = (cuda(a).float() for a in (ts, ys - ys.mean(), dys**2))
+
+    def c13_log_prob(w):
+        c13_log_prob.calls += 1
+        term = BrownianTerm(0.01 * torch.exp(w[:, 0]), 20.0 * torch.exp(w[:, 1]),
+                            10.0 * torch.exp(w[:, 2]), 0.3 * torch.sigmoid(w[:, 3]))
+        ll = log_likelihood(term, tt, diag, yy)
+        return torch.where(torch.isfinite(ll), ll, -1e25) - 0.5 * torch.sum(w**2, dim=-1)
+
+    def nuts_run(c, steps, warmup, depth):
+        x0 = torch.zeros((c, 4), dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_nuts(c13_log_prob, x0, 0, steps, n_warmup=warmup, max_depth=depth)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    c13_log_prob.calls = 0
+    res, s13 = nuts_run(C13_CHAINS, C13_STEPS, C13_WARMUP, C13_DEPTH)
+    batched = c13_log_prob.calls
+    leapfrogs = int(res["n_leapfrog"].sum() + res["n_leapfrog_warmup"].sum())
+    chain = res["chain"].cpu().numpy()
+    check(np.isfinite(chain).all(), "config 13: finite chains")
+    ess13 = mcmc.ess(chain)
+    rhat13 = mcmc.rhat(chain)
+    vg = _value_and_grad(c13_log_prob)
+    z13 = res["chain"][-1]
+    work, _ = profiled(lambda: vg(z13), pad=2)
+    grad_launches = len(work)
+    last = {}
+
+    def short_run():
+        c13_log_prob.calls = 0
+        run_nuts(c13_log_prob, z13, 1, 2, n_warmup=2, max_depth=4)
+        last["calls"] = c13_log_prob.calls
+
+    work, wall = profiled(short_run, pad=0)
+    busy13 = sum(us for _, us in work) / 1e6 / wall
+    # a batched leapfrog evaluates every chain's gradient in one call
+    leap_launches = len(work) / last["calls"]
+    c13 = {"seconds": s13, "leapfrogs": leapfrogs, "grad_evals_per_s": leapfrogs / s13,
+           "batched_leapfrogs": batched, "batched_per_s": batched / s13,
+           "divergences": int(res["divergences"].sum()), "min_ess": float(np.min(ess13)),
+           "max_rhat": float(np.max(rhat13)), "launches_per_leapfrog": leap_launches,
+           "launches_per_gradient": grad_launches,
+           "busy_share": busy13, "mean_tree_depth": float(res["tree_depth"].float().mean()),
+           "step_size": res["step_size"].tolist()}
+    print(f"phase 33 config 13 (4 chains, depth 6, {C13_STEPS} + {C13_WARMUP} warmup, f32): "
+          f"{leapfrogs / s13:.1f} grad-evals/s ({leapfrogs} leapfrogs of the chains in {batched} "
+          f"batched calls, {s13:.2f} s), "
+          f"divergences {c13['divergences']}, min ESS {c13['min_ess']:.1f}, max R-hat "
+          f"{c13['max_rhat']:.3f}, {leap_launches:.0f} device launches a batched leapfrog "
+          f"({grad_launches} of them the gradient), busy "
+          f"{busy13:.1%}  ({card})")
+    scaling = {}
+    for c in C13_SCALING:
+        res_c, s_c = nuts_run(c, 10, 20, 4)
+        n_c = int(res_c["n_leapfrog"].sum() + res_c["n_leapfrog_warmup"].sum())
+        scaling[f"chains_{c}"] = {"leapfrogs": n_c, "seconds": s_c, "grad_evals_per_s": n_c / s_c}
+    c13["chains_scaling"] = scaling
+    print("phase 33 config 13 chain scaling (depth 4, 10 + 20 warmup): "
+          + ", ".join(f"{k} {v['grad_evals_per_s']:.1f} grad-evals/s" for k, v in scaling.items())
+          + f"  ({card})")
+    out["config13"] = c13
+
+    rngr = np.random.default_rng(7)
+    tr = np.sort(rngr.uniform(0, 60, 300))
+    yr = (np.sin(2 * np.pi * tr / 9.0) + 0.3 * np.sin(4 * np.pi * tr / 9.0 + 0.5)
+          + 0.1 * rngr.standard_normal(tr.size))
+    dyr = np.full_like(tr, 0.1)
+    m = BrownianGP(TSeries(cuda(tr), cuda(yr)), err=cuda(dyr), init_period=8.0)
+    t0 = time.perf_counter()
+    trace, tau = m.nuts(**ROTATOR_NUTS)
+    s_nuts = time.perf_counter() - t0
+    med = float(np.median(trace["period"]))
+    kept = ROTATOR_NUTS["n_chains"] * (ROTATOR_NUTS["n_steps"] - ROTATOR_NUTS["burn"])
+    check(trace["period"].shape == (kept,) and abs(med - 9.0) / 9.0 < 0.15
+          and 0.5 < m.acceptance <= 1.0 and np.all(np.isfinite(tau))
+          and set(m.nuts_diagnostics) >= {"divergences", "step_size", "inv_mass", "tree_depth"},
+          f"BrownianGP.nuts: median period {med}, acceptance {m.acceptance}, tau {tau}")
+    out["browniangp_nuts"] = {"seconds": s_nuts, "median_period": med,
+                              "acceptance": m.acceptance,
+                              "min_ess": float(np.min(m.nuts_diagnostics["ess"])),
+                              "max_rhat": float(np.nanmax(m.nuts_diagnostics["rhat"])),
+                              "divergences": int(m.nuts_diagnostics["divergences"].sum())}
+    print(f"phase 33 BrownianGP.nuts (2 chains, 300 + 300, depth 6, synthetic rotator): median "
+          f"period {med:.3f} ({s_nuts:.1f} s), acceptance {m.acceptance:.3f}, min ESS "
+          f"{out['browniangp_nuts']['min_ess']:.1f}, max R-hat "
+          f"{out['browniangp_nuts']['max_rhat']:.3f}  ({card})")
+
+    u = np.full(6, 50.0)
+    nll = {}
+    for solver in ("scan", "pscan", "blocked", "chunked"):
+        ms_ = BrownianGP(TSeries(cuda(ts), cuda(ys)), err=cuda(dys), solver=solver)
+        nll[solver] = ms_.nll(u)
+    for solver, v in nll.items():
+        check(abs(v - nll["scan"]) <= 1e-8 * abs(nll["scan"]),
+              f"BrownianGP(solver={solver!r}).nll {v} vs scan {nll['scan']}")
+    out["modeler_solvers_nll"] = nll
+    print(f"phase 33 BrownianGP(SpottedStar) nll(u=50) by solver (f64): "
+          + ", ".join(f"{k} {v:.9f}" for k, v in nll.items()))
+
+    sub_t, sub_y, sub_e = tr[::3], yr[::3], dyr[::3]
+    q = QuasiPeriodicGP(TSeries(cuda(sub_t), cuda(sub_y)), err=cuda(sub_e), init_period=4.0)
+    t0 = time.perf_counter()
+    samples, _ = q.nuts(**QP_NUTS)
+    s_q = time.perf_counter() - t0
+    ratio = np.exp(samples[3] / 2) / np.exp(samples[5])
+    kept = QP_NUTS["n_chains"] * (QP_NUTS["n_steps"] - QP_NUTS["burn"])
+    check(samples.shape == (q.ndim, kept) and np.all(np.isfinite(samples))
+          and 0.3 < q.acceptance <= 1.0 and np.all((ratio > 1.0) & (ratio < 10.0)),
+          f"QuasiPeriodicGP.nuts: shape {samples.shape}, acceptance {q.acceptance}")
+    out["qpgp_nuts"] = {"seconds": s_q, "acceptance": q.acceptance}
+    print(f"phase 33 QuasiPeriodicGP.nuts (2 chains, 100 + 150, depth 5): acceptance "
+          f"{q.acceptance:.3f}, tau/period in (1, 10) ({s_q:.1f} s)  ({card})")
+    t33 = time.perf_counter()
+    launches = {"kalman_blocked": K.kalman_blocked.launches,
+                "celerite_forward": C.celerite_forward.launches,
+                "celerite_adjoint": C.celerite_adjoint.launches}
+    check(all(v > 0 for v in launches.values()), f"K1, G1 and G2 launched on the main path: "
+          f"{launches}")
+    rec["launches"] = launches["kalman_blocked"]
+    out["main_path_launches"] = launches
+    out["wall_s"] = {"31": t31 - start, "32": t32 - t31, "33": t33 - t32}
+    print(f"phase 33 main path (phases 32-33): {launches['kalman_blocked']} K1, "
+          f"{launches['celerite_forward']} G1 and {launches['celerite_adjoint']} G2 launches")
+    print(json_line({"kalman": out}))
+    return [rec]
+
 
 if __name__ == "__main__":
     sys.exit(main())

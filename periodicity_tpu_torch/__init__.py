@@ -10,7 +10,8 @@ phase-folding estimators (BLS, AoV, ConditionalEntropy, GregoryLoredo,
 PDM, StringLength); the decompositions (EMD, LMD, CEEMDAN, VMD); the
 time-frequency estimators (WPS, HHT, CompositeSpectrum, denoising and
 their batches); GP period inference (celerite terms and solver, the
-dense quasi-periodic GP, the ensemble sampler, L-BFGS, period priors).
+dense quasi-periodic GP, the parallel, blocked and chunked Kalman
+likelihoods, the ensemble and NUTS samplers, L-BFGS, period priors).
 Non-tensor inputs land on the card unless ``device="cpu"`` is asked for. Module layout mirrors the JAX package::
 
     periodicity_tpu_torch.core       TSeries / FSeries / TFSeries, from_jax
@@ -19,10 +20,11 @@ Non-tensor inputs land on the card unless ``device="cpu"`` is asked for. Module 
     periodicity_tpu_torch.decomposition  EMD, LMD, CEEMDAN, VMD
     periodicity_tpu_torch.timefrequency  WPS, HHT, CompositeSpectrum, denoise
     periodicity_tpu_torch.gp         BrownianGP, HarmonicGP, QuasiPeriodicGP,
-                                     celerite terms, run_ensemble, priors
+                                     celerite terms, run_ensemble,
+                                     run_nuts, priors
     periodicity_tpu_torch.ops        trig sums, spreading, fold, recursion,
-                                     sift, AM/FM normalization and celerite
-                                     kernels, peaks, filters, splines, optimizers,
+                                     sift, AM/FM normalization, celerite
+                                     and Kalman kernels, peaks, filters, splines, optimizers,
                                      EMD and LMD sifting, wavelets, HHT
     periodicity_tpu_torch.data       bundled datasets and signal generators
 """

@@ -1,10 +1,9 @@
 """Alias module mirroring the reference's import path (``periodicity.gp``).
 
 Every name of ``periodicity_tpu/gp.py`` that the port has: the modelers,
-``GaussianProcess``, the terms, ``log_likelihood``, ``run_ensemble``, the
-chain diagnostics and the priors. Left for later slices of the port, and
-not exported here: ``log_likelihood_pscan``, ``log_likelihood_blocked``,
-``log_likelihood_chunked`` and ``run_nuts`` (slice A7b), and
+``GaussianProcess``, the terms, the sequential, parallel, blocked and
+chunked likelihoods, ``run_ensemble``, ``run_nuts``, the chain diagnostics
+and the priors. Left for a later slice of the port, and not exported here:
 ``log_likelihood_sharded`` (slice A8).
 """
 
@@ -23,10 +22,14 @@ from .models.gp import (
     autocorr_time,
     ess,
     log_likelihood,
+    log_likelihood_blocked,
+    log_likelihood_chunked,
+    log_likelihood_pscan,
     make_gaussian_prior,
     make_ppf,
     rhat,
     run_ensemble,
+    run_nuts,
 )
 
 __all__ = [
@@ -42,7 +45,11 @@ __all__ = [
     "RotationTerm",
     "BrownianTerm",
     "log_likelihood",
+    "log_likelihood_pscan",
+    "log_likelihood_blocked",
+    "log_likelihood_chunked",
     "run_ensemble",
+    "run_nuts",
     "autocorr_time",
     "ess",
     "rhat",

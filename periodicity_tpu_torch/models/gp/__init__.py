@@ -1,12 +1,11 @@
 """Gaussian-process period inference (the celerite solver and its kernels,
-the dense QP GP, the ensemble sampler, period priors).
+the parallel, blocked and chunked Kalman solvers, the dense QP GP, the
+ensemble and NUTS samplers, period priors).
 
 Port of ``periodicity_tpu/models/gp``. Not ported yet, and not exported:
-``run_nuts`` and the modelers' ``nuts`` methods, ``log_likelihood_pscan``,
-``log_likelihood_blocked``, ``log_likelihood_chunked`` and
-``ssm_matrices`` (slice A7b); ``log_likelihood_sharded`` and
-``run_ensemble_sharded`` (slice A8). The modelers raise
-``NotImplementedError`` naming the slice for those solvers and samplers.
+``log_likelihood_sharded`` and ``run_ensemble_sharded`` (slice A8); the
+modelers raise ``NotImplementedError`` naming the slice for
+``solver="sharded"``.
 """
 
 from .mcmc import autocorr_time, ess, rhat, run_ensemble, run_ensemble_checkpointed
@@ -17,7 +16,14 @@ from .modelers import (
     HarmonicGP,
     QuasiPeriodicGP,
 )
+from .nuts import run_nuts
 from .priors import make_gaussian_prior, make_ppf
+from .pscan import (
+    log_likelihood_blocked,
+    log_likelihood_chunked,
+    log_likelihood_pscan,
+    ssm_matrices,
+)
 from .solver import GaussianProcess, log_likelihood
 from .terms import BrownianTerm, RotationTerm, SHOTerm, Term, TermSum
 
@@ -31,6 +37,10 @@ __all__ = [
     "make_ppf",
     "GaussianProcess",
     "log_likelihood",
+    "log_likelihood_pscan",
+    "log_likelihood_blocked",
+    "log_likelihood_chunked",
+    "ssm_matrices",
     "SHOTerm",
     "RotationTerm",
     "BrownianTerm",
@@ -38,6 +48,7 @@ __all__ = [
     "TermSum",
     "run_ensemble",
     "run_ensemble_checkpointed",
+    "run_nuts",
     "autocorr_time",
     "ess",
     "rhat",

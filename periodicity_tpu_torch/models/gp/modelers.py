@@ -5,17 +5,17 @@ Port of ``periodicity_tpu/models/gp/modelers.py`` (reference gp.py:156-538):
 - CeleriteModeler / BrownianGP / HarmonicGP: unit-hypercube
   parameterization (prior_transform with ndtri-based gaussian PPFs), the
   celerite solver for O(N) likelihoods (on the card, the fused recursion
-  kernel and its adjoint), exact autograd gradients for the hypercube
-  L-BFGS, and the ensemble sampler. Log-probabilities are batched: a
-  [B, D] batch of hypercube points becomes terms with a batch axis, one
-  kernel launch for all of them.
+  kernel and its adjoint; ``solver="pscan"``, ``"blocked"`` or
+  ``"chunked"`` for the Kalman forms of ``pscan.py``), exact autograd
+  gradients for the hypercube L-BFGS, the ensemble sampler and NUTS.
+  Log-probabilities are batched: a [B, D] batch of hypercube points
+  becomes terms with a batch axis, one kernel launch for all of them.
 - GeorgeModeler / QuasiPeriodicGP: the dense Const x ExpSquared x ExpSine2
   GP through ``torch.linalg.cholesky`` (batched over walkers), in the
   signal's dtype.
 
 Modeler objects are thin shells holding data and configuration; they live
-on the signal's device. The NUTS sampler and the pscan, blocked and chunked
-solvers come with slice A7b of the port, the sharded solver with A8.
+on the signal's device. The sharded solver comes with slice A8 of the port.
 """
 
 import math
@@ -30,6 +30,8 @@ from ...ops.optimize import lbfgs_box
 from ...utils.dtypes import full_float32
 from ...utils.logging import log_event
 from . import mcmc as _mcmc
+from .nuts import run_nuts
+from .pscan import log_likelihood_blocked, log_likelihood_chunked, log_likelihood_pscan
 from .solver import GaussianProcess, log_likelihood
 from .terms import BrownianTerm, RotationTerm
 
@@ -42,6 +44,8 @@ __all__ = [
 ]
 
 _LOG_2PI = math.log(2 * math.pi)
+_SOLVERS = {"scan": log_likelihood, "pscan": log_likelihood_pscan,
+            "blocked": log_likelihood_blocked, "chunked": log_likelihood_chunked}
 
 
 def _norm_ppf(u, mu, sd):
@@ -66,6 +70,35 @@ def _dtype(y):
     return y.dtype if y.is_floating_point() else torch.float64
 
 
+def _nuts_run_and_record(modeler, log_prob_fn, x0, seed, n_steps, n_warmup, max_depth,
+                         target_accept, burn, chain_transform=None):
+    """NUTS bookkeeping shared by both modeler families: run the sampler,
+    keep chain, acceptance, diagnostics and a sampler shim on the modeler,
+    log the done event, and return (flat post-burn samples, autocorr time)."""
+    out = run_nuts(log_prob_fn, x0, seed, int(n_steps), n_warmup=int(n_warmup),
+                   max_depth=max_depth, target_accept=target_accept)
+    chain = out["chain"]
+    if chain_transform is not None:
+        chain = chain_transform(chain)
+    modeler.chain = _host(chain)
+    modeler.acceptance = float(out["accept_prob"].mean())
+    modeler.nuts_diagnostics = {k: _host(out[k]) for k in (
+        "divergences", "step_size", "inv_mass", "tree_depth", "n_leapfrog", "n_leapfrog_warmup")}
+    samples = modeler.chain[burn:].reshape(-1, modeler.ndim)
+    tau = _mcmc.autocorr_time(modeler.chain[burn:])
+    modeler.nuts_diagnostics["ess"] = _mcmc.ess(modeler.chain[burn:], tau=tau)
+    try:
+        modeler.nuts_diagnostics["rhat"] = _mcmc.rhat(modeler.chain[burn:])
+    except ValueError:  # fewer than 4 post-burn steps
+        modeler.nuts_diagnostics["rhat"] = np.full(modeler.ndim, np.nan)
+    log_event("gp_nuts_done", modeler=type(modeler).__name__, acceptance=modeler.acceptance,
+              divergences=int(np.sum(modeler.nuts_diagnostics["divergences"])),
+              min_ess=float(np.min(modeler.nuts_diagnostics["ess"])),
+              max_rhat=float(np.nanmax(modeler.nuts_diagnostics["rhat"])))
+    modeler.sampler = types.SimpleNamespace(chain=modeler.chain, acceptance=modeler.acceptance)
+    return samples, tau
+
+
 class CeleriteModeler:
     """Hypercube-parameterized celerite GP modeler
     (reference gp.py:340-484). Subclasses define ndim, _kernel(params) and
@@ -74,11 +107,9 @@ class CeleriteModeler:
 
     def __init__(self, signal, err, init_period=None, period_ppf=None,
                  solver="scan", mesh=None, mesh_axis="seq"):
-        if solver in ("pscan", "blocked", "chunked"):
-            raise _not_ported(f"solver={solver!r}", "A7b")
         if solver == "sharded":
             raise _not_ported("solver='sharded'", "A8")
-        if solver != "scan":
+        if solver not in _SOLVERS:
             raise ValueError(f"unknown solver {solver!r}")
         signal = _signal(signal)
         self.solver = solver
@@ -127,8 +158,8 @@ class CeleriteModeler:
 
     def _nll_u(self, u):
         kernel, mean, jitter = self._build(u)
-        ll = log_likelihood(kernel, self.t, self.err**2 + jitter[..., None],
-                            self.y - mean[..., None])
+        ll = _SOLVERS[self.solver](kernel, self.t, self.err**2 + jitter[..., None],
+                                   self.y - mean[..., None])
         return -ll
 
     def _log_prob_u(self, u):
@@ -137,6 +168,18 @@ class CeleriteModeler:
         ll = -self._nll_u(u_c)
         ll = torch.where(torch.isfinite(ll), ll, -math.inf)
         return torch.where(inside, ll, -math.inf)
+
+    def _log_prob_x(self, x):
+        """Unconstrained-space log posterior [...] for gradient-based
+        sampling: x in R^ndim (or a batch [..., ndim]), u = 100 sigmoid(x),
+        plus the log-Jacobian of the transform (so the density over x
+        matches the hypercube posterior)."""
+        u = torch.clamp(100.0 * torch.sigmoid(x), 0.0101, 99.9899)
+        ll = -self._nll_u(u)
+        ll = torch.where(torch.isfinite(ll), ll, -math.inf)
+        log_jac = torch.sum(math.log(100.0) + torch.nn.functional.logsigmoid(x)
+                            + torch.nn.functional.logsigmoid(-x), dim=-1)
+        return ll + log_jac
 
     # -- reference API surface ------------------------------------------------
     def prior_transform(self, u):
@@ -263,8 +306,43 @@ class CeleriteModeler:
         self.sampler = types.SimpleNamespace(chain=self.chain, acceptance=self.acceptance)
         return trace, tau
 
-    def nuts(self, *args, **kwargs):
-        raise _not_ported("CeleriteModeler.nuts", "A7b")
+    def nuts(self, n_chains=4, n_steps=1000, n_warmup=500, burn=0, max_depth=8,
+             target_accept=0.8, psd_at=None, random_seed=None):
+        """Gradient-based posterior sampling with NUTS: exact autograd
+        gradients through the celerite solver (G2 on the card), in the
+        logit-unconstrained image of the unit hypercube. This fills the role
+        of the reference's dead ``celerite2.theano`` backend (gp.py:541-637).
+        Chains start around the MLE and adapt step size and diagonal mass
+        independently.
+
+        Returns (trace dict, tau) like :meth:`mcmc`; also sets ``self.chain``
+        (hypercube coordinates), ``self.acceptance``,
+        ``self.nuts_diagnostics`` (divergences, step sizes, mass, tree
+        depths, leapfrog counts, ESS, split R-hat) and, with ``psd_at``,
+        ``self.psds``. The start's draw comes from a generator seeded
+        (seed, 0) and the run's from (seed, 1), so the chains differ from
+        the JAX package's.
+        """
+        log_event("gp_nuts", modeler=type(self).__name__, n=self.signal.size,
+                  n_chains=n_chains, n_steps=n_steps, n_warmup=n_warmup, solver=self.solver)
+        seed = 0 if random_seed is None else int(random_seed)
+        dev = self.t.device
+        g_init = _mcmc._generator(dev, (seed, 0))
+        soln, _ = self.minimize(self.gp)
+        frac = torch.clamp(self._u(soln.x) / 100.0, 1e-4, 1 - 1e-4)
+        x_mle = torch.log(frac / (1 - frac))
+        x0 = x_mle[None, :] + 0.1 * torch.randn((n_chains, self.ndim), generator=g_init,
+                                                dtype=self.dtype, device=dev)
+        samples, tau = _nuts_run_and_record(
+            self, self._log_prob_x, x0, (seed, 1), n_steps, n_warmup, max_depth,
+            target_accept, burn, chain_transform=lambda c: 100.0 * torch.sigmoid(c))
+        with torch.no_grad():
+            trace = self.prior_transform(self._u(samples.T))
+            trace = {k: _host(v) for k, v in dict(trace).items()}
+            if psd_at is not None:
+                kernel, _, _ = self._build(self._u(samples))
+                self.psds = _host(kernel.get_psd(2 * math.pi * as_tensor(psd_at, dev)))
+        return trace, tau
 
 
 class BrownianGP(CeleriteModeler):
@@ -512,8 +590,24 @@ class GeorgeModeler:
         self.sampler = types.SimpleNamespace(chain=self.chain, acceptance=self.acceptance)
         return samples.T, tau
 
-    def nuts(self, *args, **kwargs):
-        raise _not_ported("GeorgeModeler.nuts", "A7b")
+    def nuts(self, n_chains=4, n_steps=1000, n_warmup=500, burn=0, max_depth=8,
+             target_accept=0.8, random_seed=None):
+        """Gradient-based posterior sampling (NUTS) in parameter space, with
+        exact autograd gradients through the dense-Cholesky likelihood.
+        Counterpart of :meth:`CeleriteModeler.nuts`; the QP posterior's hard
+        tau/period constraint shows up as divergences at the boundary, which
+        the sampler rejects. Returns (samples.T, tau) like :meth:`mcmc`."""
+        log_event("gp_nuts", modeler=type(self).__name__, n=self.signal.size,
+                  n_chains=n_chains, n_steps=n_steps, n_warmup=n_warmup)
+        seed = 0 if random_seed is None else int(random_seed)
+        dev = self.t.device
+        g_init = _mcmc._generator(dev, (seed, 0))
+        soln, _ = self.minimize()
+        x0 = self._theta(soln.x)[None, :] + 1e-3 * torch.randn(
+            (n_chains, self.ndim), generator=g_init, dtype=self.dtype, device=dev)
+        samples, tau = _nuts_run_and_record(self, self._log_prob_theta, x0, (seed, 1), n_steps,
+                                            n_warmup, max_depth, target_accept, burn)
+        return samples.T, tau
 
 
 class QuasiPeriodicGP(GeorgeModeler):

@@ -12,7 +12,9 @@ included, which keeps the build to seconds.
 
 Each entry point launches on the stream it is given, without
 synchronising, and returns ``cudaGetLastError()``; its wrapper raises if
-that is not 0.
+that is not 0. The helpers at the end are shared by the wrappers of the
+celerite and Kalman kernels: dispatch by device, input checks, the launch,
+and the host round trip of their plain versions.
 """
 
 import ctypes
@@ -22,6 +24,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
+import torch
 
 __all__ = ["build", "load", "ENTRY_POINTS"]
 
@@ -70,7 +75,15 @@ ENTRY_POINTS = {
     # U, P, D, W, Y, n, r, k, X, stream
     "celerite_solve_f32": [_P] * 5 + [_I] * 3 + [_P] * 2,
     "celerite_solve_f64": [_P] * 5 + [_I] * 3 + [_P] * 2,
+    # A, Q, H, diag, y, carry_in, b, n, r, n_blocks, summ, excl, mu, s, carry_out, stream
+    "kalman_blocked_f32": [_P] * 6 + [_I] * 4 + [_P] * 6,
+    "kalman_blocked_f64": [_P] * 6 + [_I] * 4 + [_P] * 6,
 }
+
+# the celerite and Kalman kernels keep a row's state in registers for up to
+# this many slots (a masked RotationTerm: two SHOs of two real and two
+# complex columns each)
+MAX_R = 8
 
 _LIB = None
 
@@ -148,3 +161,50 @@ def load():
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+# -- shared by the wrappers: host round trips for the plain versions, input
+# checks, dispatch and the launch ------------------------------------------
+
+def _host(*tensors):
+    return [None if x is None else x.detach().cpu().numpy() for x in tensors]
+
+
+def _back(device, *arrays):
+    return [None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in arrays]
+
+
+def _check(name, tensors, dtype, device):
+    for label, x in tensors.items():
+        if x is None:
+            continue
+        if x.dtype != dtype or x.device != device:
+            raise ValueError(f"{name}: {label} is {x.dtype} on {x.device}, expected {dtype} on "
+                             f"{device}")
+
+
+def _launch(name, fn, *args):
+    """Launch ``fn`` on the current stream of the first tensor's device.
+    Tensors pass as their data pointers, None as a null pointer."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else ctypes.c_void_p(None) if a is None else a for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*conv, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _entry(base, dtype):
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the kernels take float32 or float64, got {dtype}")
+    return getattr(load(), f"{base}_{'f32' if dtype == torch.float32 else 'f64'}")
+
+
+def _on_cpu(x):
+    """True for a CPU tensor, False for a CUDA one; raises for others."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type == "cpu"

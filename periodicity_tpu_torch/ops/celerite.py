@@ -32,10 +32,10 @@ versions step through numpy arrays on the host, as ``sosfilt_plain`` does.
 ``celerite_solve.launches`` count the kernel launches.
 """
 
-import ctypes
-
 import numpy as np
 import torch
+
+from ._kernels import MAX_R, _back, _check, _entry, _host, _launch, _on_cpu
 
 __all__ = [
     "MAX_R",
@@ -47,10 +47,6 @@ __all__ = [
     "celerite_solve_plain",
     "CeleriteLikelihood",
 ]
-
-# the kernels keep a row's state in registers for up to this many slots (a
-# masked RotationTerm: two SHOs of two real and two complex columns each)
-MAX_R = 8
 
 
 def _rowsum(x):
@@ -69,15 +65,6 @@ def _unpack_index(r):
     full[iu, ju] = np.arange(iu.shape[0])
     full[ju, iu] = np.arange(iu.shape[0])
     return iu, ju, full
-
-
-def _host(*tensors):
-    return [None if x is None else x.detach().cpu().numpy() for x in tensors]
-
-
-def _back(device, *arrays):
-    return [None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in arrays]
 
 
 def celerite_forward_plain(A, U, V, P, y=None, save=False):
@@ -219,43 +206,6 @@ def celerite_solve_plain(U, P, D, W, Y):
         g = P[i] * (g + U[i + 1] * x_next[:, None])
         x_next = X[i] = X[i] - _rowsum(W[i] * g)
     return _back(device, X)[0]
-
-
-def _check(name, tensors, dtype, device):
-    for label, x in tensors.items():
-        if x is None:
-            continue
-        if x.dtype != dtype or x.device != device:
-            raise ValueError(f"{name}: {label} is {x.dtype} on {x.device}, expected {dtype} on "
-                             f"{device}")
-
-
-def _launch(name, fn, *args):
-    """Launch ``fn`` on the current stream of the first tensor's device.
-    Tensors pass as their data pointers, None as a null pointer."""
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-            else ctypes.c_void_p(None) if a is None else a for a in args]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*conv, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
-def _entry(base, dtype):
-    from ._kernels import load
-
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"the celerite kernels take float32 or float64, got {dtype}")
-    return getattr(load(), f"{base}_{'f32' if dtype == torch.float32 else 'f64'}")
-
-
-def _on_cpu(x):
-    """True for a CPU tensor, False for a CUDA one; raises for others."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    return x.device.type == "cpu"
 
 
 def _check_r(r):

@@ -143,16 +143,66 @@ def test_minimize_sets_the_gp_at_the_optimum(spotted):
 
 
 def test_unported_solvers_and_samplers_name_their_slice(spotted):
+    """Only the sharded solver is left (slice A8); an unknown one is an error."""
     t, y, dy = spotted
     sig = TSeries(t[:50], y[:50], device="cpu")
-    for solver, piece in (("pscan", "A7b"), ("blocked", "A7b"), ("chunked", "A7b"),
-                          ("sharded", "A8")):
-        with pytest.raises(NotImplementedError, match=piece):
-            BrownianGP(sig, err=dy[:50], solver=solver)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        BrownianGP(sig, err=dy[:50]).nuts()
-    with pytest.raises(NotImplementedError, match="A7b"):
-        QuasiPeriodicGP(sig, dy[:50]).nuts()
+    with pytest.raises(NotImplementedError, match="A8"):
+        BrownianGP(sig, err=dy[:50], solver="sharded")
+    with pytest.raises(ValueError, match="unknown solver"):
+        BrownianGP(sig, err=dy[:50], solver="dense")
+
+
+@pytest.mark.parametrize("solver", ["pscan", "blocked", "chunked"])
+def test_solvers_give_the_scans_nll_on_spotted_star(spotted, solver):
+    """tests/test_gp.py::test_pscan_modeler_path and test_chunked_modeler_path
+    (rel 1e-8), for every Kalman solver, with its gradient at a batch of
+    hypercube points the scan's."""
+    t, y, dy = spotted
+    sig = TSeries(t, y, device="cpu")
+    scan = BrownianGP(sig, err=torch.from_numpy(dy))
+    other = BrownianGP(sig, err=torch.from_numpy(dy), solver=solver)
+    u = np.full(6, 50.0)
+    assert other.nll(u) == pytest.approx(scan.nll(u), rel=1e-8)
+    uu = torch.from_numpy(np.random.default_rng(1).uniform(20, 80, (2, 6)))
+    grads = []
+    for m in (scan, other):
+        x = uu.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(m._nll_u(x).sum(), x)
+        grads.append(g)
+    tol = 0.0 if solver != "pscan" else 1e-8
+    np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(), rtol=tol,
+                               atol=tol * float(grads[0].abs().max()))
+
+
+def test_nuts_surface_on_a_short_run(spotted):
+    """Both families' .nuts() at a small shape: trace and chain shapes, the
+    chain in hypercube coordinates for the celerite modeler, finite values,
+    PSDs over the samples, the diagnostics' keys, the same seed the same
+    chain."""
+    t, y, dy = spotted
+    n = 40
+    pm = BrownianGP(TSeries(t[:n], y[:n], device="cpu"), err=torch.from_numpy(dy[:n]))
+    freq = np.linspace(0.05, 1.0, 5)
+    trace, tau = pm.nuts(n_chains=2, n_steps=6, n_warmup=4, burn=2, max_depth=3, psd_at=freq,
+                         random_seed=3)
+    assert set(trace) == {"mean", "sigma", "tau", "period", "mix", "jitter"}
+    assert trace["period"].shape == (2 * 4,) and tau.shape == (pm.ndim,)
+    assert pm.chain.shape == (6, 2, pm.ndim) and pm.psds.shape == (2 * 4, freq.size)
+    assert np.all((pm.chain > 0) & (pm.chain < 100)) and np.all(np.isfinite(pm.psds))
+    assert 0 <= pm.acceptance <= 1
+    assert set(pm.nuts_diagnostics) == {"divergences", "step_size", "inv_mass", "tree_depth",
+                                        "n_leapfrog", "n_leapfrog_warmup", "ess", "rhat"}
+    assert pm.nuts_diagnostics["tree_depth"].shape == (6, 2)
+    assert np.all(pm.nuts_diagnostics["tree_depth"] <= 3)
+    chain = pm.chain.copy()
+    pm.nuts(n_chains=2, n_steps=6, n_warmup=4, burn=2, max_depth=3, random_seed=3)
+    np.testing.assert_array_equal(pm.chain, chain)
+    qp = QuasiPeriodicGP(TSeries(t[:30], y[:30], device="cpu"), torch.from_numpy(dy[:30]))
+    samples, tau = qp.nuts(n_chains=2, n_steps=5, n_warmup=4, burn=1, max_depth=3,
+                           random_seed=1)
+    assert samples.shape == (qp.ndim, 2 * 4) and qp.chain.shape == (5, 2, qp.ndim)
+    assert np.all(np.isfinite(samples)) and 0 <= qp.acceptance <= 1
+    assert qp.nuts_diagnostics["rhat"].shape == (qp.ndim,)
 
 
 def test_make_gaussian_prior_spotted_star(spotted):

@@ -1137,3 +1137,157 @@ def test_gp_modelers_on_card_match_cpu(cuda):
     theta = np.array([0.0, np.log(0.01), np.log(0.5), np.log(25.0), 2.0, np.log(2.0)])
     for a, b in zip(qc.predict(theta, tq[:10]), qh.predict(theta, tq[:10])):
         close(a, b, 1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_kalman_kernel_matches_plain_bit_for_bit(cuda, dtype, r):
+    """K1 against its plain version at R = 1..8: from the identity and from
+    an incoming carry, block counts that divide N, that do not, and more
+    blocks than samples."""
+    from chip_smoke import k1_draw
+    from periodicity_tpu_torch.models.gp import pscan
+    from periodicity_tpu_torch.ops import kalman as K
+
+    rng = np.random.default_rng(r)
+    for b, n, nb in ((3, 257, 7), (2, 64, 8), (1, 5, 16), (2, 1, 1)):
+        coeffs, dt, A, Q, H, diag, y = k1_draw(rng, r, b, n, dtype)
+        _, _, carry = K.kalman_blocked_plain(A, Q, H, diag, y, 3)
+        Ac = pscan._ssm_from_dt(coeffs, dt)[0]
+        Qc = pscan._noise(Ac, pscan._ssm_from_dt(coeffs, dt)[1])
+        for args, start in (((A, Q, H, diag, y), None), ((Ac, Qc, H, diag, y), carry)):
+            args = [x.contiguous() for x in args]
+            want = K.kalman_blocked_plain(*args, nb, start)
+            got = K.kalman_blocked(*(x.to(cuda) for x in args), nb,
+                                   None if start is None else tuple(c.to(cuda) for c in start))
+            assert all(_bits(a, w) for a, w in zip((got[0], got[1], *got[2]),
+                                                   (want[0], want[1], *want[2])))
+
+
+def test_kalman_kernel_counts_raises_and_never_falls_back(cuda, monkeypatch):
+    from chip_smoke import k1_draw
+    from periodicity_tpu_torch.ops import _kernels
+    from periodicity_tpu_torch.ops import kalman as K
+
+    _, _, A, Q, H, diag, y = k1_draw(np.random.default_rng(0), 4, 2, 30, torch.float64)
+    A, Q, H, diag, y = (x.to(cuda) for x in (A, Q, H, diag, y))
+    before = K.kalman_blocked.launches
+    K.kalman_blocked(A, Q, H, diag, y, 4)
+    assert K.kalman_blocked.launches == before + 1
+    with pytest.raises(ValueError):
+        K.kalman_blocked(A.float(), Q, H, diag, y, 4)
+    with pytest.raises(ValueError):
+        K.kalman_blocked(A, Q[:, :10], H, diag, y, 4)
+    wide = torch.zeros((1, 5, 9, 9), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="1 to 8"):
+        K.kalman_blocked(wide, wide, torch.ones(9, dtype=torch.float64, device=cuda),
+                         diag[:1, :5], y[:1, :5], 2)
+
+    class Failing:
+        @staticmethod
+        def kalman_blocked_f64(*args):
+            return 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(_kernels, "load", lambda: Failing())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.kalman_blocked(A, Q, H, diag, y, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kalman_solvers_on_card_match_cpu(cuda, dtype):
+    """pscan, blocked and chunked on the card against the CPU port (the
+    card's exp, cos and products may differ from the host's by an ulp), and
+    the gradients of blocked and chunked the scan's on the card."""
+    from periodicity_tpu_torch.gp import (BrownianTerm, log_likelihood, log_likelihood_blocked,
+                                          log_likelihood_chunked, log_likelihood_pscan)
+
+    rng = np.random.default_rng(12)
+    n = 777
+    t = np.sort(rng.uniform(0, 60, n))
+    y = np.sin(2 * np.pi * t / 9.0) + 0.1 * rng.standard_normal(n)
+    data = [torch.from_numpy(a).to(dtype) for a in (t, np.full(n, 0.02), y - y.mean())]
+    rel = 1e-12 if dtype == torch.float64 else 1e-5
+    calls = {"pscan": log_likelihood_pscan,
+             "blocked": lambda *a: log_likelihood_blocked(*a, n_blocks=16),
+             "chunked": lambda *a: log_likelihood_chunked(*a, chunk=256, inner_blocks=64)}
+    for name, fn in calls.items():
+        host = fn(BrownianTerm(0.01, 20.0, 10.0, 0.3), *data)
+        card = fn(BrownianTerm(0.01, 20.0, 10.0, 0.3), *(a.to(cuda) for a in data))
+        assert card.device.type == "cuda"
+        assert float(card) == pytest.approx(float(host), rel=rel), name
+    p = torch.tensor([0.01, 20.0, 10.0, 0.3], dtype=dtype, device=cuda)
+    grads = {}
+    for name, fn in (("scan", log_likelihood), ("blocked", calls["blocked"]),
+                     ("chunked", calls["chunked"])):
+        pg = p.clone().requires_grad_(True)
+        ll = fn(BrownianTerm(pg[0], pg[1], pg[2], pg[3]), *(a.to(cuda) for a in data))
+        (grads[name],) = torch.autograd.grad(ll, pg)
+    assert torch.equal(grads["blocked"], grads["scan"])
+    assert torch.equal(grads["chunked"], grads["scan"])
+
+
+def test_nuts_step_on_card_matches_cpu_with_the_same_draws(cuda):
+    """One NUTS transition of 4 chains on a BrownianTerm posterior (f64; the
+    leapfrog's gradient through G1 and G2 on the card) against the CPU port
+    fed the same draws: equal depths, leaf counts and divergence flags, z
+    within 1e-10."""
+    from periodicity_tpu_torch.gp import BrownianTerm, log_likelihood
+    from periodicity_tpu_torch.models.gp import nuts as N
+
+    rng = np.random.default_rng(7)
+    t = np.sort(rng.uniform(0, 60, 120))
+    y = np.sin(2 * np.pi * t / 9.0) + 0.1 * rng.standard_normal(120)
+    max_depth = 5
+    draws = (rng.standard_normal((4, 4)), rng.random((4, max_depth)) < 0.5,
+             rng.random((4, max_depth, 1 << (max_depth - 1))), rng.random((4, max_depth)))
+    z0 = 0.3 * rng.standard_normal((4, 4))
+    eps = np.array([0.05, 0.2, 0.6, 1.5])
+    results = {}
+    for dev in (torch.device("cpu"), cuda):
+        tt, yy = (torch.from_numpy(a).to(dev) for a in (t, y - y.mean()))
+        diag = torch.full_like(tt, 0.01)
+
+        def lp(w, tt=tt, yy=yy, diag=diag):
+            term = BrownianTerm(0.3 * torch.exp(w[:, 0]), 20.0 * torch.exp(w[:, 1]),
+                                9.0 * torch.exp(w[:, 2]), 0.3 * torch.sigmoid(w[:, 3]))
+            ll = log_likelihood(term, tt, diag, yy)
+            return torch.where(torch.isfinite(ll), ll, -1e25) - 0.5 * torch.sum(w**2, dim=-1)
+
+        vg = N._value_and_grad(lp)
+        z = torch.from_numpy(z0).to(dev)
+        logp, grad = vg(z)
+        out = N._nuts_step(vg, z, logp, grad, torch.from_numpy(eps).to(dev),
+                           torch.ones_like(z), max_depth,
+                           tuple(torch.from_numpy(np.asarray(d)).to(dev) for d in draws))
+        results[dev.type] = [x.cpu() for x in out]
+    host, card = results["cpu"], results["cuda"]
+    for i in (4, 5, 6):  # leaves, divergence, depth
+        assert torch.equal(card[i], host[i])
+    np.testing.assert_allclose(card[0].numpy(), host[0].numpy(), rtol=1e-10, atol=1e-12)
+    assert len(set(host[6].tolist())) > 1
+
+
+def test_modelers_nuts_and_solvers_on_card(cuda):
+    """BrownianGP with every solver on the card against the CPU port (nll,
+    f64), and both families' .nuts() on the card at a small shape."""
+    from periodicity_tpu_torch.gp import BrownianGP, QuasiPeriodicGP
+
+    t, y, dy = SpottedStar()
+    u = np.full(6, 50.0)
+    for solver in ("pscan", "blocked", "chunked"):
+        card = BrownianGP(TSeries(torch.from_numpy(t).to(cuda), torch.from_numpy(y).to(cuda)),
+                          err=torch.from_numpy(dy).to(cuda), solver=solver)
+        host = BrownianGP(TSeries(t, y, device="cpu"), err=torch.from_numpy(dy), solver=solver)
+        assert card.nll(u) == pytest.approx(host.nll(u), rel=1e-10)
+    n = 60
+    pm = BrownianGP(TSeries(torch.from_numpy(t[:n]).to(cuda), torch.from_numpy(y[:n]).to(cuda)),
+                    err=torch.from_numpy(dy[:n]).to(cuda))
+    trace, tau = pm.nuts(n_chains=2, n_steps=8, n_warmup=6, burn=2, max_depth=4,
+                         random_seed=1)
+    assert trace["period"].shape == (12,) and np.all(np.isfinite(trace["period"]))
+    assert np.all((pm.chain > 0) & (pm.chain < 100))
+    qp = QuasiPeriodicGP(TSeries(torch.from_numpy(t[:n]).to(cuda),
+                                 torch.from_numpy(y[:n]).to(cuda)),
+                         torch.from_numpy(dy[:n]).to(cuda))
+    samples, _ = qp.nuts(n_chains=2, n_steps=6, n_warmup=4, burn=1, max_depth=3, random_seed=0)
+    assert samples.shape == (qp.ndim, 10) and np.all(np.isfinite(samples))
