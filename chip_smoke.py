@@ -162,13 +162,37 @@ kernels, and checks every phase:
    against the scan on SpottedStar, and ``QuasiPeriodicGP.nuts``. Phases
    32-33 are this slice's main path: the counts of K1, G1 and G2 are
    zeroed before it and each must have launched in it.
+34. the parallel package at world size 1 through NCCL (``default_mesh``
+   starts a group of one): ``sharded_gls`` at the bench shape through the
+   spreading kernel, ``sharded_bls`` at config 11 and ``sharded_aov``
+   through the fold kernel, ``sharded_pdm`` at config 4, each bit-equal to
+   its unsharded call and timed beside it; ``distributed_fft``,
+   ``distributed_ifft`` and ``distributed_acf`` of one series of 2^24
+   samples in float32 and 2^22 in float64 against the float64 FFT, cuFFT
+   and the container's ACF;
+35. ``log_likelihood_sharded`` at config 7's points (N = 1e4, 1e5, 1e6,
+   f32 and f64) against the f64 scan within phase 32's limits, and timed
+   beside one K1 call; ``run_ensemble_sharded`` at config 8's size, 5
+   float64 steps on injected draws card against CPU, and JAX's 2-D
+   Gaussian moments; ``BrownianGP(solver="sharded")`` on SpottedStar,
+   nll and gradient against ``solver="scan"``;
+36. ``utils.trace`` around one bench-shape periodogram (the exported trace
+   names the spreading kernel) and ``utils.timer``. Phases 34-36 are this
+   slice's main path: the counts of B1, B2 and K1 are zeroed before it and
+   each must have launched in it;
+37. D = 4 ranks' stages of ``sharded_gls``, ``sharded_bls``,
+   ``distributed_fft`` and ``log_likelihood_sharded``, each rank in turn on
+   the card (the collectives done by the join), against the same stages on
+   the CPU, with each rank's stage times; the 4-rank likelihood against the
+   one-rank value.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (one GPU).
 Any failure raises and the exit code is non-zero. Phases 11-16 print
 their rates as one JSON line, phases 17-20 theirs as another, phases 21-22
 a ``{"decomposition": ...}`` line, phase 23 a ``{"cells": ...}`` line,
 phases 24-26 a ``{"timefrequency": ...}`` line, phases 27-30 a
-``{"gp": ...}`` line and phases 31-33 a ``{"kalman": ...}`` line; the line
+``{"gp": ...}`` line, phases 31-33 a ``{"kalman": ...}`` line and phases
+34-37 a ``{"parallel": ...}`` line; the line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -724,9 +748,15 @@ def main():
     t7 = time.perf_counter()
     kernels += kalman_slice(dev, card, cuda)
     t8 = time.perf_counter()
+    sharded = parallel_slice(dev, card, cuda)
+    for rec in kernels:
+        if rec["name"] in sharded:
+            rec["sharded_launches"] = sharded[rec["name"]]
+    t9 = time.perf_counter()
     print(f"wall time: phases 1-6 {t0 - start:.1f} s, 7-10 {t1 - t0:.1f} s, 11-16 "
           f"{t2 - t1:.1f} s, 17-20 {t3 - t2:.1f} s, 21-22 {t4 - t3:.1f} s, 23 {t5 - t4:.1f} s, "
-          f"24-26 {t6 - t5:.1f} s, 27-30 {t7 - t6:.1f} s, 31-33 {t8 - t7:.1f} s")
+          f"24-26 {t6 - t5:.1f} s, 27-30 {t7 - t6:.1f} s, 31-33 {t8 - t7:.1f} s, 34-37 "
+          f"{t9 - t8:.1f} s")
     print(json_line({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -3739,6 +3769,515 @@ def kalman_slice(dev, card, cuda):
           f"{launches['celerite_forward']} G1 and {launches['celerite_adjoint']} G2 launches")
     print(json_line({"kalman": out}))
     return [rec]
+
+
+# the parallel slice (phases 34-37): the sharded scans at world size 1
+# through NCCL against their unsharded calls at the GLS bench shape, config
+# 11 (BLS) and config 4 (AoV, PDM); the distributed FFT and ACF of one
+# series of 2^24 (f32) and 2^22 (f64) samples; config 7's likelihood points
+# through log_likelihood_sharded; config 8's size through
+# run_ensemble_sharded; the sharded modeler on SpottedStar; and D = 4 ranks'
+# stages in turn on the card against the same stages on the CPU
+PAR_D = 4
+C4_N, C4_P = 2000, 100_000  # config 4 (benchmarks/run_benchmarks.py:203-257)
+PAR_FFT_N = {"float32": 1 << 24, "float64": 1 << 22}
+# f64: the JAX package's bounds (tests/test_parallel.py:160-193). f32: the
+# FFT within PAR_F32_FFT_X times cuFFT's own f32 error against f64 on the
+# same input (the radix-D split adds one unit-modulus twiddle product and
+# a D-term sum an output to an L-point FFT, each a few f32 roundings, so
+# its error stays of the order of the library's); the ACF within
+# PAR_F32_FFT_X times the container's own f32 ACF error against f64
+PAR_F64_FFT, PAR_F64_ACF = 1e-9, 1e-10
+PAR_F32_FFT_X = 4.0
+# card against the CPU: f64 1e-12 (of max|X|, of |ll|); f32 the port's
+# card-vs-CPU bound of config 2's ACF (1e-5 of the largest value), and
+# phase 5's f32 GLS bounds (1e-4 of the peak below pseudo-Nyquist, 5e-4 on
+# the whole grid); BLS power within 1e-4 of the peak with the same best
+# period (phase 8)
+PAR_F64_CPU, PAR_F32_CPU = 1e-12, 1e-5
+PAR_ONE_RANK = 1e-10
+
+
+def in_turn_gls(t, y, err, df, fmin, nf, d, gridder):
+    """sharded_gls's stage for ranks 0..d-1 in turn, joined: power [nf]."""
+    import torch
+
+    from periodicity_tpu_torch.parallel.sharded import _gls_stage
+
+    return torch.cat([_gls_stage(t, y, err, df, fmin, nf // d, idx, True, False, gridder)
+                      for idx in range(d)])
+
+
+def in_turn_bls(t, y, w, periods, d, **kw):
+    """sharded_bls's stage for ranks 0..d-1 in turn, joined: (power,
+    depth, width_idx, bin_start)."""
+    import torch
+
+    from periodicity_tpu_torch.models.phase import bls_scan
+    from periodicity_tpu_torch.parallel.sharded import _period_stage
+
+    outs = [_period_stage(bls_scan, (t, y, w), periods, d, idx, **kw) for idx in range(d)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def in_turn_fft(x, d):
+    """distributed_fft's stages for ranks 0..d-1 in turn, the all_to_all
+    done by the join (rank r receives copy r of every rank): the cyclic
+    spectrum [N], ordered [r, m] -> X[D m + r]."""
+    import torch
+
+    from periodicity_tpu_torch.parallel import dfft
+
+    n = x.shape[-1]
+    el = n // d
+    cd = dfft._cdtype(x)
+    copies = [dfft._fwd_copies(x[j * el:(j + 1) * el], j, d, cd) for j in range(d)]
+    return torch.cat([dfft._fwd_finish(torch.stack([c[r] for c in copies]), r, n)
+                      for r in range(d)])
+
+
+def in_turn_ifft(X, d):
+    """distributed_ifft's stages for ranks 0..d-1 in turn: the series [N]."""
+    import torch
+
+    from periodicity_tpu_torch.parallel import dfft
+
+    n = X.shape[-1]
+    el = n // d
+    cd = dfft._cdtype(X)
+    parts = [dfft._inv_copies(X[r * el:(r + 1) * el], r, d, n, cd) for r in range(d)]
+    return torch.cat([dfft._inv_finish(torch.stack([p[j] for p in parts]), d)
+                      for j in range(d)])
+
+
+def in_turn_ll(term, t, diag, y, d):
+    """log_likelihood_sharded's stages for ranks 0..d-1 in turn: each
+    rank's first K1 pass, the all_gather of their summaries done by the
+    join, each rank's exclusive carry and second pass, and the all_reduce
+    as a sum in rank order. Returns (the total, each rank's share)."""
+    import torch
+
+    from periodicity_tpu_torch.models.gp import pscan
+    from periodicity_tpu_torch.utils.dtypes import full_float32
+
+    coeffs, tt, dd, yy, batch = pscan._prepared(term, t, diag, y)
+    with torch.no_grad(), full_float32():
+        dt = torch.cat([tt.new_zeros(1), torch.diff(tt)])
+        firsts = [pscan._shard_first(coeffs, dt, dd, yy, batch, d, i) for i in range(d)]
+        summaries = torch.stack([f[1] for f in firsts])
+        shares = [firsts[0][0]] + [
+            pscan._shard_second(coeffs, dt, dd, yy, batch, d, i,
+                                pscan._shard_carry(summaries, i, pscan._states(coeffs)))
+            for i in range(1, d)]
+    total = shares[0]
+    for s in shares[1:]:
+        total = total + s
+    return total, shares
+
+
+def parallel_slice(dev, card, cuda):
+    """Phases 34-37: the parallel package and the sharded GP on the card.
+    Phases 34-36 are the slice's main path at world size 1 through NCCL (B1,
+    B2 and K1 counted from zero across them); phase 37 runs D = 4 ranks'
+    stages in turn on the card against the CPU. Prints the ``{"parallel":
+    ...}`` line and returns the main path's launches by kernel."""
+    import glob
+    import json as _json
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from periodicity_tpu_torch import TSeries
+    from periodicity_tpu_torch import data as pdata
+    from periodicity_tpu_torch.gp import BrownianGP, log_likelihood, log_likelihood_blocked
+    from periodicity_tpu_torch.models.gp import mcmc, pscan
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm
+    from periodicity_tpu_torch.models.phase import aov_scan, bls_scan, pdm_scan
+    from periodicity_tpu_torch.ops import kalman as K
+    from periodicity_tpu_torch.ops.fold import fold_onehot
+    from periodicity_tpu_torch.ops.grid2 import extirpolate_grid_factored
+    from periodicity_tpu_torch.parallel import (default_mesh, distributed_acf, distributed_fft,
+                                                distributed_ifft, sharded_aov, sharded_bls,
+                                                sharded_gls, sharded_pdm)
+    from periodicity_tpu_torch.parallel import dfft as D
+    from periodicity_tpu_torch.parallel.sharded import _gls_stage, _period_stage
+    from periodicity_tpu_torch.spectral import gls_power
+    from periodicity_tpu_torch.utils import timer, trace
+
+    start = time.perf_counter()
+    out = {"card": card}
+
+    def overhead(name, sharded, plain, reps=3, phase=34):
+        """Event times of the sharded call and its unsharded call, in turns."""
+        sharded(), plain()
+        runs = {"sharded": [], "plain": []}
+        for which in ("plain", "sharded", "sharded", "plain"):
+            runs[which].append(event_ms(sharded if which == "sharded" else plain, reps))
+        got = {k: statistics.mean(v) for k, v in runs.items()}
+        out.setdefault("world1_ms", {})[name] = got
+        print(f"phase {phase} world size 1 {name}: sharded {got['sharded']:.4f} ms, unsharded "
+              f"{got['plain']:.4f} ms, overhead {got['sharded'] - got['plain']:+.4f} ms  ({card})")
+
+    # phase 34: the sharded scans and transforms at world size 1 (NCCL,
+    # a HashStore group the mesh starts itself), bit-equal to the unsharded
+    # calls through the kernels; the slice's main path starts here
+    mesh = default_mesh(("grid",))
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and mesh.device_type == "cuda", "default_mesh: a world of one on NCCL")
+    extirpolate_grid_factored.launches = 0
+    fold_onehot.launches = 0
+    K.kalman_blocked.launches = 0
+    t, y, err = bench_draw()
+    tc, yc, ec = cuda(t), cuda(y), cuda(err)
+    df = float(np.float32(0.5 / BASELINE))
+    fmin = float(np.float32(df / 2))
+    b1 = extirpolate_grid_factored.launches
+    got = sharded_gls(tc, yc, ec, df, fmin, NF, mesh, gridder="kernel")
+    b1 = extirpolate_grid_factored.launches - b1
+    want = gls_power(tc, yc, ec, df, fmin, NF, gridder="kernel")
+    check(bit_equal(got.full_tensor(), want) and got.to_local().shape == (NF,),
+          "sharded_gls(gridder='kernel') bit-equal to gls_power at the bench shape")
+    check(b1 == 3, f"sharded_gls: 3 spreading launches (no pair_q, as JAX), got {b1}")
+    overhead("sharded_gls_bench", lambda: sharded_gls(tc, yc, ec, df, fmin, NF, mesh,
+                                                      gridder="kernel"),
+             lambda: gls_power(tc, yc, ec, df, fmin, NF, gridder="kernel"))
+
+    tb, yb = bls_draw()
+    tbc, ybc = cuda(tb), cuda(yb)
+    wb = torch.full_like(tbc, 1.0 / BLS_N)
+    pb = cuda(np.linspace(0.5, 100.0, BLS_P))
+    kw = dict(widths=tuple(max(1, int(round(q * BLS_NBINS))) for q in BLS_DURATIONS),
+              nbins=BLS_NBINS, batch_size=BLS_BATCH, binner="kernel")
+    def fold_close(label, got, want, again):
+        """A fold-kernel scan's sharded result against its unsharded call:
+        B2 adds weighted values with shared f32 atomics, so two launches
+        may round a bin's sum in another order (``again``, a second
+        unsharded call, shows it). Held as phase 7a holds the fold: within
+        1e-5 of the largest value, the same best period."""
+        got, want, again = (x if isinstance(x, tuple) else (x,) for x in (got, want, again))
+        got = tuple(g.full_tensor() for g in got)
+        d = max(float((g.double() - w.double()).abs().max() / w.abs().max())
+                for g, w in zip(got[:2], want[:2]))
+        spread = max(float((a.double() - w.double()).abs().max() / w.abs().max())
+                     for a, w in zip(again[:2], want[:2]))
+        best = int(torch.argmax(want[0]))
+        same = all(bool(g[best] == w[best]) for g, w in zip(got[2:], want[2:]))
+        check(d <= 1e-5 and int(torch.argmax(got[0])) == best and same,
+              f"{label}: sharded within {d:.2e} of the unsharded scan (limit 1e-5), best "
+              f"{int(torch.argmax(got[0]))} vs {best}")
+        bits = all(bit_equal(g, w) for g, w in zip(got, want))
+        out.setdefault("fold_kernel_world1", {})[label] = {
+            "rel_vs_unsharded": d, "unsharded_run_to_run_rel": spread, "bit_equal": bits}
+        print(f"phase 34 {label}: sharded vs unsharded {d:.2e} of the largest value (bit-equal "
+              f"{bits}); two unsharded calls {spread:.2e} apart (B2's float atomics)  ({card})")
+
+    b2 = fold_onehot.launches
+    got = sharded_bls(tbc, ybc, wb, pb, mesh, **kw)
+    b2 = fold_onehot.launches - b2
+    fold_close("sharded_bls config 11", got, bls_scan(tbc, ybc, wb, pb, **kw),
+               bls_scan(tbc, ybc, wb, pb, **kw))
+    check(b2 == -(-BLS_P // BLS_BATCH), f"sharded_bls: one fold launch a chunk, got {b2}")
+    overhead("sharded_bls_config11", lambda: sharded_bls(tbc, ybc, wb, pb, mesh, **kw),
+             lambda: bls_scan(tbc, ybc, wb, pb, **kw), reps=1)
+
+    rng = np.random.default_rng(0)
+    t4 = np.sort(rng.uniform(0, 200.0, C4_N)).astype(np.float32)
+    y4 = (np.sin(2 * np.pi * t4 / 7.7) + 0.2 * rng.standard_normal(C4_N)).astype(np.float32)
+    t4c, y4c = cuda(t4), cuda(y4)
+    p4 = cuda(np.linspace(0.5, 100.0, C4_P).astype(np.float32))
+    for name, sharded, plain in (
+            ("sharded_aov_config4",
+             lambda: sharded_aov(t4c, y4c, p4, mesh, batch_size=512, binner="kernel"),
+             lambda: aov_scan(t4c, y4c, p4, batch_size=512, binner="kernel")),
+            ("sharded_pdm_config4", lambda: sharded_pdm(t4c, y4c, p4, mesh, batch_size=512),
+             lambda: pdm_scan(t4c, y4c, p4, batch_size=512))):
+        if "aov" in name:
+            fold_close("sharded_aov config 4", sharded(), plain(), plain())
+        else:  # no kernel: the same eager operations
+            check(bit_equal(sharded().full_tensor(), plain()), f"{name}: bit-equal to the scan")
+        overhead(name, sharded, plain, reps=1)
+
+    smesh = default_mesh(("seq",))
+    fft_out = {}
+    for dname, n in PAR_FFT_N.items():
+        dtype = getattr(torch, dname)
+        x = torch.randn(n, dtype=torch.float64, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(34)).to(dtype)
+        X = distributed_fft(x, smesh).full_tensor()
+        X64 = torch.fft.fft(x.double())
+        lib = torch.fft.fft(x.to(X.dtype))
+        scale = float(X64.abs().max())
+        err_d = float((X.to(torch.complex128) - X64).abs().max()) / scale
+        err_lib = float((lib.to(torch.complex128) - X64).abs().max()) / scale
+        back = distributed_ifft(distributed_fft(x, smesh), smesh).full_tensor()
+        err_back = float((back.real.double() - x.double()).abs().max())
+        yv = (torch.sin(2 * math.pi * torch.arange(n, device=dev, dtype=torch.float64) / 64)
+              + 0.2 * x.double()).to(dtype)
+        acf = distributed_acf(yv, smesh).full_tensor()
+        tl = torch.arange(n, dtype=torch.float64, device=dev)
+        ref64 = TSeries(tl, yv.double()).acf(max_lag=n // 2).values
+        err_acf = float((acf[: n // 2].double() - ref64).abs().max())
+        rec = {"n": n, "rel_vs_f64_fft": err_d, "cufft_rel_vs_f64_fft": err_lib,
+               "bit_equal_to_torch_fft": bool(torch.equal(X, lib)), "round_trip_abs": err_back,
+               "acf_abs_vs_f64_container": err_acf}
+        if dname == "float64":
+            check(err_d <= PAR_F64_FFT and err_back <= 1e-10 and err_acf <= PAR_F64_ACF,
+                  f"f64 dfft N={n}: {err_d:.2e} of max|X|, round trip {err_back:.2e}, ACF "
+                  f"{err_acf:.2e}")
+        else:
+            ref32 = TSeries(tl.float(), yv).acf(max_lag=n // 2).values
+            err_acf_lib = float((ref32.double() - ref64).abs().max())
+            rec["container_f32_acf_abs_vs_f64"] = err_acf_lib
+            check(err_d <= PAR_F32_FFT_X * err_lib and err_acf <= PAR_F32_FFT_X * err_acf_lib,
+                  f"f32 dfft N={n}: {err_d:.2e} of max|X| (cuFFT {err_lib:.2e}), ACF "
+                  f"{err_acf:.2e} (container f32 {err_acf_lib:.2e})")
+        overhead(f"distributed_fft_{dname}_N{n}", lambda x=x: distributed_fft(x, smesh),
+                 lambda x=x, cd=X.dtype: torch.fft.fft(x.to(cd)))
+        fft_out[dname] = rec
+        print(f"phase 34 dfft {dname} N={n} at world size 1: {err_d:.3e} of max|X| from the f64 "
+              f"transform (cuFFT in {dname}: {err_lib:.3e}; bit-equal to torch.fft.fft "
+              f"{rec['bit_equal_to_torch_fft']}), round trip {err_back:.2e}, ACF {err_acf:.3e} "
+              f"from the f64 container ACF  ({card})")
+    out["dfft"] = fft_out
+    t34 = time.perf_counter()
+
+    # phase 35: config 7's points through log_likelihood_sharded (world of
+    # one: one K1 call over the series) against the f64 scan, C5's limits;
+    # run_ensemble_sharded at config 8's size; the sharded modeler
+    term = BrownianTerm(0.01, 20.0, 10.0, 0.3)
+    c7 = {}
+    for n in C7_SOLVER_NS + (C7_CHUNKED_N,):
+        t7, y7 = c7_series(np.random.default_rng(0), n)
+        tt, yy = cuda(t7), cuda(y7)
+        diag = torch.full_like(tt, 0.01)
+        with torch.no_grad():
+            ref = float(log_likelihood(term, tt.double(), diag.double(), yy.double()))
+            ll32 = float(pscan.log_likelihood_sharded(term, tt, diag, yy, smesh))
+            ll64 = float(pscan.log_likelihood_sharded(term, tt.double(), diag.double(),
+                                                      yy.double(), smesh))
+        rel32, rel64 = abs(ll32 - ref) / abs(ref), abs(ll64 - ref) / abs(ref)
+        limit = F32_LL_REL if n == C7_SOLVER_NS[0] else F32_LL_REL_LONG[n]
+        check(rel32 <= limit and rel64 <= F64_LL_REL,
+              f"log_likelihood_sharded N={n}: f32 {rel32:.2e} (limit {limit}), f64 {rel64:.2e}")
+        c7[f"N{n}"] = {"f32_rel": rel32, "f64_rel": rel64}
+        with torch.no_grad():
+            overhead(f"log_likelihood_sharded_N{n}",
+                     lambda: pscan.log_likelihood_sharded(term, tt, diag, yy, smesh),
+                     lambda: log_likelihood_blocked(term, tt, diag, yy,
+                                                    n_blocks=pscan._shard_blocks(n)),
+                     reps=1, phase=35)
+        print(f"phase 35 log_likelihood_sharded config 7 N={n}: f32 {rel32:.3e} (limit {limit}), "
+              f"f64 {rel64:.2e} from the f64 scan  ({card})")
+    out["config7"] = c7
+
+    wmesh = default_mesh(("walkers",))
+    t5, y5, dy5 = pdata.SpottedStar()
+    x8 = np.random.default_rng(0).uniform(0.9, 1.1, (C8_WALKERS, 4))
+
+    def c8_log_prob(tt, yy, diag):
+        def log_prob(ws):
+            term = BrownianTerm(0.01 * ws[:, 0], 20.0 * ws[:, 1], 10.0 * ws[:, 2],
+                                0.3 * ws[:, 3])
+            ll = log_likelihood(term, tt, diag, yy)
+            return torch.where(torch.isfinite(ll), ll, -1e25)
+        return log_prob
+
+    with torch.no_grad():
+        lp8 = c8_log_prob(*(cuda(a).float() for a in (t5, y5 - y5.mean(), dy5**2)))
+        x0 = cuda(x8).float()
+        mcmc.run_ensemble_sharded(lp8, x0, 0, 2, wmesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain, lps, acc = mcmc.run_ensemble_sharded(lp8, x0, 0, C8_STEPS, wmesh)
+        torch.cuda.synchronize()
+        s8 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mcmc.run_ensemble(lp8, x0, 0, C8_STEPS)
+        torch.cuda.synchronize()
+        s8_plain = time.perf_counter() - t0
+        check(tuple(chain.shape) == (C8_STEPS, C8_WALKERS, 4) and 0 < acc < 1
+              and bool(torch.isfinite(lps.full_tensor()).all()),
+              "run_ensemble_sharded config 8: [steps, W, D], finite, accepting")
+        # 5 f64 steps card vs CPU on one set of injected draws
+        rng8 = np.random.default_rng(8)
+        half = C8_WALKERS // 2
+        draws = [[(rng8.random(C8_WALKERS), rng8.integers(0, half, C8_WALKERS),
+                   rng8.random(C8_WALKERS)) for _ in range(2)] for _ in range(5)]
+        runs = {}
+        for where, put in (("cuda", cuda), ("cpu", torch.from_numpy)):
+            lp = c8_log_prob(*(put(a) for a in (t5, y5 - y5.mean(), dy5**2)))
+            dd = [[tuple(put(np.asarray(a)) for a in h) for h in s] for s in draws]
+            c, _, a = mcmc._sharded_chain(lp, put(x8), 0, half, 5, lambda s, k: dd[s][k],
+                                          lambda x: x, 2.0)
+            runs[where] = (c.cpu(), a.cpu())
+        check(torch.equal(runs["cuda"][1], runs["cpu"][1]),
+              "run_ensemble_sharded f64 on injected draws: accepts card vs CPU")
+        rel8 = float(((runs["cuda"][0] - runs["cpu"][0]).abs() / runs["cpu"][0].abs()).max())
+        check(rel8 <= PAR_F64_CPU, f"run_ensemble_sharded f64: card vs CPU {rel8:.2e}")
+        # JAX's moment test (tests/test_parallel.py:109-134) on the card
+        mu = torch.tensor([1.0, -2.0], device=dev)
+        sd = torch.tensor([0.5, 2.0], device=dev)
+        x0g = torch.randn(64, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        cg, _, accg = mcmc.run_ensemble_sharded(
+            lambda x: -0.5 * torch.sum(((x - mu) / sd) ** 2, dim=-1), x0g, 1, 1500, wmesh)
+        samples = cg.full_tensor()[500:].reshape(-1, 2).double()
+        m_err = float((samples.mean(0) - mu.double()).abs().max())
+        s_rel = float(((samples.std(0) - sd.double()).abs() / sd.double()).max())
+        check(0.1 < accg < 0.95 and m_err <= 0.15 and s_rel <= 0.15,
+              f"run_ensemble_sharded moments: acceptance {accg}, mean {m_err}, std {s_rel}")
+    out["sampler"] = {"config8_walker_steps_per_s": C8_WALKERS * C8_STEPS / s8,
+                      "config8_seconds": s8, "run_ensemble_seconds": s8_plain,
+                      "acceptance": acc, "f64_cpu_rel": rel8, "moments_mean_abs": m_err,
+                      "moments_std_rel": s_rel, "moments_acceptance": accg}
+    print(f"phase 35 run_ensemble_sharded config 8 (64 x {C8_STEPS}, f32, world 1): {s8:.3f} s "
+          f"({C8_WALKERS * C8_STEPS / s8:.4e} walker-steps/s; run_ensemble {s8_plain:.3f} s), "
+          f"acceptance {acc:.3f}; f64 on injected draws card vs CPU {rel8:.1e}; 2-D Gaussian "
+          f"mean within {m_err:.3f}, std within {s_rel:.3f}  ({card})")
+
+    sig = TSeries(cuda(t5), cuda(y5))
+    m_scan = BrownianGP(sig, err=cuda(dy5))
+    m_shard = BrownianGP(sig, err=cuda(dy5), solver="sharded", mesh=smesh)
+    d_nll = d_grad = 0.0
+    for u in np.random.default_rng(35).uniform(5, 95, (3, m_scan.ndim)):
+        vals = []
+        for mm in (m_shard, m_scan):
+            uu = cuda(u).requires_grad_(True)
+            f = mm._nll_u(uu)
+            (g,) = torch.autograd.grad(f, uu)
+            vals.append((float(f.detach()), g))
+        d_nll = max(d_nll, abs(vals[0][0] - vals[1][0]) / abs(vals[1][0]))
+        d_grad = max(d_grad, float((vals[0][1] - vals[1][1]).abs().max()
+                                   / vals[1][1].abs().max()))
+    check(d_nll <= PAR_ONE_RANK and d_grad <= PAR_ONE_RANK,
+          f"BrownianGP(solver='sharded') vs scan: nll {d_nll:.2e}, gradient {d_grad:.2e}")
+    out["modeler"] = {"nll_rel_vs_scan": d_nll, "grad_rel_vs_scan": d_grad}
+    print(f"phase 35 BrownianGP(SpottedStar, solver='sharded'): nll within {d_nll:.1e} and its "
+          f"gradient within {d_grad:.1e} of solver='scan'  ({card})")
+    t35 = time.perf_counter()
+
+    # phase 36: a trace around one bench-shape periodogram names B1's
+    # kernel; the timer
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir):
+            gls_power(tc, yc, ec, df, fmin, NF, pair_q=1, gridder="kernel")
+            torch.cuda.synchronize()
+        files = glob.glob(f"{logdir}/*.pt.trace.json")
+        check(len(files) == 1, f"trace: one exported trace, got {files}")
+        with open(files[0]) as f:
+            names = {e.get("name", "") for e in _json.load(f)["traceEvents"]}
+    spread = sorted(n for n in names if "spread_walk" in n)
+    check(bool(spread), "the exported trace names the spreading kernel")
+    with timer("bench periodogram") as tm:
+        gls_power(tc, yc, ec, df, fmin, NF, pair_q=1, gridder="kernel")
+    check(tm["seconds"] > 0, f"timer: {tm}")
+    out["profiling"] = {"trace_kernels": spread, "timer_s": tm["seconds"]}
+    print(f"phase 36 trace: {len(names)} event names, the spreading kernel as {spread[:1]}; "
+          f"timer {tm['seconds'] * 1e3:.3f} ms a bench-shape periodogram  ({card})")
+    launches = {"extirpolate_grid_factored": extirpolate_grid_factored.launches,
+                "fold_onehot": fold_onehot.launches, "kalman_blocked": K.kalman_blocked.launches}
+    check(all(v > 0 for v in launches.values()),
+          f"B1, B2 and K1 launched on the slice's main path: {launches}")
+    out["main_path_launches"] = launches
+    print(f"phase 36 main path (phases 34-36): {launches['extirpolate_grid_factored']} B1, "
+          f"{launches['fold_onehot']} B2 and {launches['kalman_blocked']} K1 launches")
+    t36 = time.perf_counter()
+
+    # phase 37: D = 4 ranks' stages in turn on the card, joined, against
+    # the same stages on the CPU, with each rank's stage times
+    stages = {}
+
+    def rank_ms(name, fns):
+        stages[name] = [event_ms(fn, 1) for fn in fns]
+
+    gls_d = {w: in_turn_gls(*(a if w == "cuda" else torch.from_numpy(b) for a, b in
+                              ((tc, t), (yc, y), (ec, err))), df, fmin, NF, PAR_D,
+                            "kernel" if w == "cuda" else "scatter") for w in ("cuda", "cpu")}
+    ref_gls = in_turn_gls(*(torch.from_numpy(a).double() for a in (t, y, err)), df, fmin, NF,
+                          PAR_D, "scatter")
+    peak = float(ref_gls.max())
+    k_nyq = int((0.5 / float(TSeries(tc, yc).median_dt) - fmin) / df) + 1
+    dp = (gls_d["cuda"].cpu().double() - gls_d["cpu"].double()).abs() / peak
+    d_band, d_all = float(dp[:k_nyq].max()), float(dp.max())
+    d64 = float((gls_d["cuda"].cpu().double() - ref_gls).abs().max()) / peak
+    check(d_band <= 1e-4 and d_all <= 5e-4 and d64 <= 5e-4,
+          f"D=4 sharded_gls stages f32 card vs CPU: {d_band:.2e} below pseudo-Nyquist, {d_all:.2e} "
+          f"overall, {d64:.2e} from the f64 CPU stages")
+    rank_ms("gls_bench", [lambda i=i: _gls_stage(tc, yc, ec, df, fmin, NF // PAR_D, i, True,
+                                                 False, "kernel") for i in range(PAR_D)])
+    bls_d = {w: in_turn_bls(*(put(a) for a in (tb, yb, np.full(BLS_N, 1.0 / BLS_N, np.float32),
+                                                np.linspace(0.5, 100.0, BLS_P))), PAR_D, **kw)
+             for w, put in (("cuda", cuda), ("cpu", torch.from_numpy))}
+    pk = float(bls_d["cpu"][0].max())
+    d_bls = float((bls_d["cuda"][0].cpu() - bls_d["cpu"][0]).abs().max()) / pk
+    check(d_bls <= 1e-4 and int(torch.argmax(bls_d["cuda"][0])) == int(torch.argmax(
+        bls_d["cpu"][0])), f"D=4 sharded_bls stages card vs CPU: {d_bls:.2e} of the peak")
+    rank_ms("bls_config11", [lambda i=i: _period_stage(bls_scan, (tbc, ybc, wb), pb, PAR_D, i,
+                                                       **kw) for i in range(PAR_D)])
+    fft_d = {}
+    for dname, n in PAR_FFT_N.items():
+        x = torch.randn(n, dtype=torch.float64, generator=torch.Generator().manual_seed(37)).to(
+            getattr(torch, dname))
+        Xc, Xh = in_turn_fft(x.to(dev), PAR_D).cpu(), in_turn_fft(x, PAR_D)
+        scale = float(Xh.abs().max())
+        d_cpu = float((Xc - Xh).abs().max()) / scale
+        nat = torch.empty(n, dtype=torch.complex128)
+        for r in range(PAR_D):
+            nat[r::PAR_D] = Xc.reshape(PAR_D, n // PAR_D)[r].to(torch.complex128)
+        X64 = torch.fft.fft(x.double())
+        xd = x.to(dev)
+        lib = float((torch.fft.fft(xd.to(Xc.dtype)).cpu().to(torch.complex128) - X64).abs().max())
+        d64 = float((nat - X64).abs().max()) / float(X64.abs().max())
+        back = float((in_turn_ifft(Xc.to(dev), PAR_D).real.cpu().double() - x.double())
+                     .abs().max())
+        limit = PAR_F64_CPU if dname == "float64" else PAR_F32_CPU
+        bound64 = PAR_F64_FFT if dname == "float64" else PAR_F32_FFT_X * lib / float(
+            X64.abs().max())
+        check(d_cpu <= limit and d64 <= bound64 and back <= (1e-10 if dname == "float64"
+                                                              else 1e-4),
+              f"D=4 dfft {dname} N={n}: card vs CPU {d_cpu:.2e} (limit {limit}), natural order "
+              f"vs the f64 FFT {d64:.2e} (limit {bound64:.2e}), round trip {back:.2e}")
+        fft_d[dname] = {"card_vs_cpu": d_cpu, "rel_vs_f64_fft": d64, "round_trip_abs": back,
+                        "cufft_rel_vs_f64_fft": lib / float(X64.abs().max())}
+        el = n // PAR_D
+        copies = [D._fwd_copies(xd[j * el:(j + 1) * el], j, PAR_D, Xc.dtype) for j in range(PAR_D)]
+        recv = [torch.stack([c[r] for c in copies]) for r in range(PAR_D)]
+        rank_ms(f"fft_{dname}_copies", [lambda j=j: D._fwd_copies(xd[j * el:(j + 1) * el], j,
+                                                                  PAR_D, Xc.dtype)
+                                        for j in range(PAR_D)])
+        rank_ms(f"fft_{dname}_finish", [lambda r=r: D._fwd_finish(recv[r], r, n)
+                                        for r in range(PAR_D)])
+        del copies, recv
+    t7, y7 = c7_series(np.random.default_rng(0), C7_SOLVER_NS[1])
+    args64 = [a.double() for a in (torch.from_numpy(t7), torch.full((t7.size,), 0.01,
+                                                                   dtype=torch.float32),
+                                   torch.from_numpy(y7))]
+    ll_d = {}
+    for where, device in (("cuda", dev), ("cpu", "cpu")):
+        total, _ = in_turn_ll(term, *(a.to(device) for a in args64), PAR_D)
+        ll_d[where] = float(total)
+    one = float(pscan.log_likelihood_sharded(term, *(a.to(dev) for a in args64), smesh))
+    d_ll = abs(ll_d["cuda"] - ll_d["cpu"]) / abs(ll_d["cpu"])
+    d_one = abs(ll_d["cuda"] - one) / abs(one)
+    check(d_ll <= PAR_F64_CPU and d_one <= PAR_ONE_RANK,
+          f"D=4 log_likelihood_sharded stages f64 N=1e5: card vs CPU {d_ll:.2e}, vs one rank "
+          f"{d_one:.2e}")
+    out["d4"] = {"gls_f32_card_vs_cpu_band": d_band, "gls_f32_card_vs_cpu": d_all,
+                 "gls_f32_vs_f64_cpu": d64, "bls_card_vs_cpu": d_bls, "dfft": fft_d,
+                 "ll_f64_card_vs_cpu": d_ll, "ll_f64_vs_one_rank": d_one,
+                 "rank_stage_ms": stages}
+    print(f"phase 37 D={PAR_D} ranks in turn, card vs CPU: sharded_gls f32 {d_band:.2e} / "
+          f"{d_all:.2e} of the peak, sharded_bls {d_bls:.2e}, dfft f32 "
+          f"{fft_d['float32']['card_vs_cpu']:.2e} / f64 {fft_d['float64']['card_vs_cpu']:.2e} of "
+          f"max|X|, log_likelihood_sharded f64 {d_ll:.2e} (vs one rank {d_one:.2e})  ({card})")
+    for name, ms in stages.items():
+        print(f"phase 37 rank stage times {name}: " + ", ".join(f"{x:.4f}" for x in ms)
+              + f" ms  ({card})")
+    dist.destroy_process_group()
+    t37 = time.perf_counter()
+    out["wall_s"] = {"34": t34 - start, "35": t35 - t34, "36": t36 - t35, "37": t37 - t36}
+    print(json_line({"parallel": out}))
+    return launches
 
 
 if __name__ == "__main__":

@@ -11,7 +11,10 @@ PDM, StringLength); the decompositions (EMD, LMD, CEEMDAN, VMD); the
 time-frequency estimators (WPS, HHT, CompositeSpectrum, denoising and
 their batches); GP period inference (celerite terms and solver, the
 dense quasi-periodic GP, the parallel, blocked and chunked Kalman
-likelihoods, the ensemble and NUTS samplers, L-BFGS, period priors).
+likelihoods, the ensemble and NUTS samplers, L-BFGS, period priors); and
+the parallel package (device meshes, sharded scans, the distributed FFT
+and ACF, multi-process start-up) with the sharded GP likelihood and
+sampler; profiling.
 Non-tensor inputs land on the card unless ``device="cpu"`` is asked for. Module layout mirrors the JAX package::
 
     periodicity_tpu_torch.core       TSeries / FSeries / TFSeries, from_jax
@@ -27,9 +30,10 @@ Non-tensor inputs land on the card unless ``device="cpu"`` is asked for. Module 
                                      and Kalman kernels, peaks, filters, splines, optimizers,
                                      EMD and LMD sifting, wavelets, HHT
     periodicity_tpu_torch.data       bundled datasets and signal generators
+    periodicity_tpu_torch.parallel   meshes, sharded scans, distributed FFT/ACF
 """
 
-from . import core, data, decomposition, gp, ops, phase, spectral
+from . import core, data, decomposition, gp, ops, parallel, phase, spectral
 from . import timefrequency
 from .core import FSeries, TFSeries, TSeries
 
@@ -37,4 +41,4 @@ __version__ = "0.1.0"
 name = "periodicity_tpu_torch"
 
 __all__ = ["TSeries", "FSeries", "TFSeries", "core", "spectral", "phase", "decomposition",
-           "timefrequency", "gp", "ops", "data"]
+           "timefrequency", "gp", "ops", "data", "parallel"]

@@ -1,10 +1,9 @@
 """Alias module mirroring the reference's import path (``periodicity.gp``).
 
-Every name of ``periodicity_tpu/gp.py`` that the port has: the modelers,
-``GaussianProcess``, the terms, the sequential, parallel, blocked and
-chunked likelihoods, ``run_ensemble``, ``run_nuts``, the chain diagnostics
-and the priors. Left for a later slice of the port, and not exported here:
-``log_likelihood_sharded`` (slice A8).
+Every name of ``periodicity_tpu/gp.py``: the modelers,
+``GaussianProcess``, the terms, the sequential, parallel, blocked, chunked
+and sharded likelihoods, ``run_ensemble``, ``run_nuts``, the chain
+diagnostics and the priors.
 """
 
 from .models.gp import (
@@ -25,6 +24,7 @@ from .models.gp import (
     log_likelihood_blocked,
     log_likelihood_chunked,
     log_likelihood_pscan,
+    log_likelihood_sharded,
     make_gaussian_prior,
     make_ppf,
     rhat,
@@ -48,6 +48,7 @@ __all__ = [
     "log_likelihood_pscan",
     "log_likelihood_blocked",
     "log_likelihood_chunked",
+    "log_likelihood_sharded",
     "run_ensemble",
     "run_nuts",
     "autocorr_time",

@@ -1,14 +1,19 @@
 """Gaussian-process period inference (the celerite solver and its kernels,
 the parallel, blocked and chunked Kalman solvers, the dense QP GP, the
-ensemble and NUTS samplers, period priors).
+ensemble and NUTS samplers, their sharded forms over a device mesh,
+period priors).
 
-Port of ``periodicity_tpu/models/gp``. Not ported yet, and not exported:
-``log_likelihood_sharded`` and ``run_ensemble_sharded`` (slice A8); the
-modelers raise ``NotImplementedError`` naming the slice for
-``solver="sharded"``.
+Port of ``periodicity_tpu/models/gp``.
 """
 
-from .mcmc import autocorr_time, ess, rhat, run_ensemble, run_ensemble_checkpointed
+from .mcmc import (
+    autocorr_time,
+    ess,
+    rhat,
+    run_ensemble,
+    run_ensemble_checkpointed,
+    run_ensemble_sharded,
+)
 from .modelers import (
     BrownianGP,
     CeleriteModeler,
@@ -22,6 +27,7 @@ from .pscan import (
     log_likelihood_blocked,
     log_likelihood_chunked,
     log_likelihood_pscan,
+    log_likelihood_sharded,
     ssm_matrices,
 )
 from .solver import GaussianProcess, log_likelihood
@@ -40,6 +46,7 @@ __all__ = [
     "log_likelihood_pscan",
     "log_likelihood_blocked",
     "log_likelihood_chunked",
+    "log_likelihood_sharded",
     "ssm_matrices",
     "SHOTerm",
     "RotationTerm",
@@ -48,6 +55,7 @@ __all__ = [
     "TermSum",
     "run_ensemble",
     "run_ensemble_checkpointed",
+    "run_ensemble_sharded",
     "run_nuts",
     "autocorr_time",
     "ess",

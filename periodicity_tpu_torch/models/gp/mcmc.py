@@ -10,20 +10,26 @@ The random draws come from a seeded ``torch.Generator`` on the walkers'
 device, so the chains differ from the JAX package's for the same seed.
 :func:`stretch_step` takes its draws explicitly (each half's stretch
 uniforms, partner indices and acceptance uniforms), so a test can feed it
-the JAX package's draws. The diagnostics are host numpy, as in JAX.
+the JAX package's draws. :func:`run_ensemble_sharded` lays the walkers
+over a mesh axis, one all-gather a half-update; its rank-local chain
+(``_sharded_chain``) takes its draws from a callable, so a test can feed
+it JAX's per-device draws too. The diagnostics are host numpy, as in JAX.
 """
 
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ...core import as_tensor
+from ...parallel.mesh import axis_info, local_block, mesh_device, sharded_output
 from ...utils.checkpoint import _npz_path, load_state, save_state
 
 __all__ = [
     "run_ensemble",
     "run_ensemble_checkpointed",
+    "run_ensemble_sharded",
     "stretch_step",
     "autocorr_time",
     "ess",
@@ -43,16 +49,19 @@ def _generator(device, seed):
     return gen
 
 
-def _draws(gen, half, dtype, device):
-    """One half-update's draws: (stretch uniforms, partner indices,
-    acceptance uniforms), each [half]."""
-    u = torch.rand(half, generator=gen, dtype=dtype, device=device)
-    j = torch.randint(0, half, (half,), generator=gen, device=device)
-    r = torch.rand(half, generator=gen, dtype=dtype, device=device)
+def _draws(gen, half, dtype, device, size=None):
+    """One half-update's draws: (stretch uniforms, partner indices in [0,
+    half), acceptance uniforms), each [size] ([half] by default)."""
+    size = half if size is None else size
+    u = torch.rand(size, generator=gen, dtype=dtype, device=device)
+    j = torch.randint(0, half, (size,), generator=gen, device=device)
+    r = torch.rand(size, generator=gen, dtype=dtype, device=device)
     return u, j, r
 
 
-def _half_update(log_prob_fn, x_move, lp_move, x_other, draws, a):
+def _half_update(log_prob_fn, x_move, lp_move, x_other, draws, a, active=None):
+    """Walkers x_move propose with partners x_other[j]; only the ``active``
+    ones (all when None) may accept."""
     u, j, r = draws
     d = x_move.shape[1]
     z = ((a - 1.0) * u + 1.0) ** 2 / a
@@ -61,6 +70,8 @@ def _half_update(log_prob_fn, x_move, lp_move, x_other, draws, a):
     lp_prop = log_prob_fn(prop)
     log_r = (d - 1) * torch.log(z) + lp_prop - lp_move
     accept = torch.log(r) < log_r
+    if active is not None:
+        accept = accept & active
     x_new = torch.where(accept[:, None], prop, x_move)
     lp_new = torch.where(accept, lp_prop, lp_move)
     return x_new, lp_new, accept
@@ -173,6 +184,83 @@ def run_ensemble_checkpointed(log_prob_fn, x0, seed, n_steps, a=2.0,
 
     acceptance = float(np.average(acc_steps[:, 0], weights=acc_steps[:, 1]))
     return torch.from_numpy(chain).to(device), torch.from_numpy(lps).to(device), acceptance
+
+
+def _sharded_half_update(log_prob_fn, x_local, lp_local, full, active, draws, half, a):
+    """One half-update of a rank's walkers x_local [Wl, D] against the
+    gathered ensemble ``full`` [W, D]: every walker proposes with a partner
+    from the other half (``draws`` = (u, j, r), each [Wl], j in [0, half)),
+    and only the ``active`` ones may accept."""
+    u, j, r = draws
+    # walkers of the first half draw partners from the second, and back
+    return _half_update(log_prob_fn, x_local, lp_local, full,
+                        (u, torch.where(active, j + half, j), r), a, active)
+
+
+def _sharded_chain(log_prob_fn, x_local, first, half, n_steps, draw, gather, a):
+    """A rank's chain: its walkers x_local [Wl, D], whose global indices
+    start at ``first``; ``draw(step, k)`` gives the draws of half-update k
+    (0 moves the first half of the ensemble, 1 the second) and
+    ``gather(x)`` the whole ensemble [W, D]. Returns (chain [n_steps, Wl,
+    D], log-probabilities [n_steps, Wl], accepted [n_steps, Wl])."""
+    wl = x_local.shape[0]
+    in_first = (first + torch.arange(wl, device=x_local.device)) < half
+    x, lp = x_local, log_prob_fn(x_local)
+    chain, lps, accepts = [], [], []
+    for step in range(int(n_steps)):
+        x, lp, acc1 = _sharded_half_update(log_prob_fn, x, lp, gather(x), in_first,
+                                           draw(step, 0), half, a)
+        x, lp, acc2 = _sharded_half_update(log_prob_fn, x, lp, gather(x), ~in_first,
+                                           draw(step, 1), half, a)
+        chain.append(x)
+        lps.append(lp)
+        accepts.append(acc1 | acc2)
+    if not chain:
+        return x.new_zeros((0,) + x.shape), lp.new_zeros((0, wl)), x.new_zeros((0, wl), dtype=bool)
+    return torch.stack(chain), torch.stack(lps), torch.stack(accepts)
+
+
+def run_ensemble_sharded(log_prob_fn, x0, seed, n_steps, mesh, axis="walkers", a=2.0):
+    """Stretch-move ensemble MCMC with the walker axis sharded over a mesh.
+
+    Each rank owns W/D walkers and evaluates their log-probabilities
+    locally; the complementary half-ensemble needed for partner draws is
+    exchanged with one ``all_gather`` per half-update. Detailed balance
+    follows the red-black (two-half) scheme: walkers with global index <
+    W/2 form the first half. Proposals are computed for every local walker
+    each half-update, but only the moving half may accept.
+
+    log_prob_fn: batched fn [B, D] -> [B]. x0 [W, D], whole on every rank
+    (or a DTensor sharded on its walkers), with W divisible by 2 D. Each
+    rank draws from a generator seeded through SeedSequence from (seed, 1,
+    its index on ``axis``). Returns (chain [n_steps, W, D] and log_probs
+    [n_steps, W], DTensors sharded over ``axis`` on the walker dimension;
+    the acceptance fraction, a float: the mean over ranks).
+    """
+    n_dev, idx, group = axis_info(mesh, axis)
+    x0 = as_tensor(x0, mesh_device(mesh))
+    w = x0.shape[0]
+    if w % (2 * n_dev):
+        raise ValueError(f"n_walkers={w} must be divisible by 2*{n_dev}")
+    x_local = local_block(x0, mesh, axis)
+    half, wl = w // 2, w // n_dev
+    key = tuple(seed) if isinstance(seed, (tuple, list)) else (int(seed),)
+    gen = _generator(x_local.device, key + (1, idx))
+
+    def draw(step, k):
+        return _draws(gen, half, x_local.dtype, x_local.device, size=wl)
+
+    def gather(x):
+        parts = [torch.empty_like(x) for _ in range(n_dev)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    chain, lps, accepts = _sharded_chain(log_prob_fn, x_local, idx * wl, half, n_steps, draw,
+                                         gather, a)
+    acc = torch.mean(accepts.to(torch.float32)).reshape(1)
+    dist.all_reduce(acc, group=group)
+    return (sharded_output(chain, mesh, axis, dim=1), sharded_output(lps, mesh, axis, dim=1),
+            float(acc) / n_dev)
 
 
 def _acf_1d(x):

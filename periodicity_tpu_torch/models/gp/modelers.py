@@ -6,7 +6,8 @@ Port of ``periodicity_tpu/models/gp/modelers.py`` (reference gp.py:156-538):
   parameterization (prior_transform with ndtri-based gaussian PPFs), the
   celerite solver for O(N) likelihoods (on the card, the fused recursion
   kernel and its adjoint; ``solver="pscan"``, ``"blocked"`` or
-  ``"chunked"`` for the Kalman forms of ``pscan.py``), exact autograd
+  ``"chunked"`` for the Kalman forms of ``pscan.py``; ``solver="sharded"``
+  with a ``mesh`` for the time axis laid over its ``mesh_axis``), exact autograd
   gradients for the hypercube L-BFGS, the ensemble sampler and NUTS.
   Log-probabilities are batched: a [B, D] batch of hypercube points
   becomes terms with a batch axis, one kernel launch for all of them.
@@ -15,9 +16,10 @@ Port of ``periodicity_tpu/models/gp/modelers.py`` (reference gp.py:156-538):
   signal's dtype.
 
 Modeler objects are thin shells holding data and configuration; they live
-on the signal's device. The sharded solver comes with slice A8 of the port.
+on the signal's device.
 """
 
+import functools
 import math
 import types
 
@@ -31,7 +33,13 @@ from ...utils.dtypes import full_float32
 from ...utils.logging import log_event
 from . import mcmc as _mcmc
 from .nuts import run_nuts
-from .pscan import log_likelihood_blocked, log_likelihood_chunked, log_likelihood_pscan
+from ...parallel.mesh import axis_info
+from .pscan import (
+    log_likelihood_blocked,
+    log_likelihood_chunked,
+    log_likelihood_pscan,
+    log_likelihood_sharded,
+)
 from .solver import GaussianProcess, log_likelihood
 from .terms import BrownianTerm, RotationTerm
 
@@ -55,11 +63,6 @@ def _norm_ppf(u, mu, sd):
 def _norm_logpdf(x, mu, sd):
     z = (x - mu) / sd
     return -0.5 * z * z - math.log(sd) - 0.5 * _LOG_2PI
-
-
-def _not_ported(what, piece):
-    return NotImplementedError(f"{what} is not ported yet: it comes with slice {piece} of the "
-                               "PyTorch port (ROADMAP.md)")
 
 
 def _signal(signal):
@@ -107,11 +110,19 @@ class CeleriteModeler:
 
     def __init__(self, signal, err, init_period=None, period_ppf=None,
                  solver="scan", mesh=None, mesh_axis="seq"):
-        if solver == "sharded":
-            raise _not_ported("solver='sharded'", "A8")
-        if solver not in _SOLVERS:
-            raise ValueError(f"unknown solver {solver!r}")
         signal = _signal(signal)
+        if solver == "sharded":
+            if mesh is None:
+                raise ValueError("solver='sharded' needs a torch.distributed DeviceMesh via mesh=")
+            d = axis_info(mesh, mesh_axis)[0]
+            if signal.size % d:
+                raise ValueError(f"series length {signal.size} must be divisible by mesh axis "
+                                 f"{mesh_axis!r} size {d}")
+            self._ll = functools.partial(log_likelihood_sharded, mesh=mesh, axis=mesh_axis)
+        elif solver in _SOLVERS:
+            self._ll = _SOLVERS[solver]
+        else:
+            raise ValueError(f"unknown solver {solver!r}")
         self.solver = solver
         self.mesh = mesh
         self.mesh_axis = mesh_axis
@@ -158,8 +169,7 @@ class CeleriteModeler:
 
     def _nll_u(self, u):
         kernel, mean, jitter = self._build(u)
-        ll = _SOLVERS[self.solver](kernel, self.t, self.err**2 + jitter[..., None],
-                                   self.y - mean[..., None])
+        ll = self._ll(kernel, self.t, self.err**2 + jitter[..., None], self.y - mean[..., None])
         return -ll
 
     def _log_prob_u(self, u):

@@ -14,10 +14,12 @@ C, eta, J)`` composed by :func:`_combine`.
   the port's own copy of ``lax.associative_scan``'s odd/even recursion (the
   same tree as JAX's), each level one batched :func:`_combine`; eager torch
   on both devices (~2 log2 N levels), differentiable by autograd.
-- :func:`log_likelihood_blocked` and :func:`log_likelihood_chunked`: the
-  blocked composition K1 (``ops/kalman.py``; a hand kernel on the card, its
+- :func:`log_likelihood_blocked`, :func:`log_likelihood_chunked` and
+  :func:`log_likelihood_sharded`: the blocked composition K1 (``ops/kalman.py``; a hand kernel on the card, its
   plain version on the CPU), once for the series or once a chunk with the
-  composed element carried between chunks. K1 has no adjoint: when an input
+  composed element carried between chunks, or once a rank's stretch and
+  again from the carry the earlier ranks' summaries compose. K1 has no
+  adjoint: when an input
   needs a gradient they return K1's value with the gradient of the
   sequential solver (``solver.log_likelihood``, G1 and G2 on the card),
   ``ll_k1.detach() + (ll_scan - ll_scan.detach())``, the exact gradient of
@@ -32,9 +34,11 @@ card); the diagonal and the residuals go to the times' device, as in
 import math
 
 import torch
+import torch.distributed as dist
 
 from ...core import as_tensor
-from ...ops.kalman import kalman_blocked
+from ...ops.kalman import kalman_blocked, pack_carry, unpack_carry
+from ...parallel.mesh import axis_info
 from ...utils.dtypes import full_float32
 from . import solver as _solver
 from .solver import _at
@@ -44,6 +48,7 @@ __all__ = [
     "log_likelihood_pscan",
     "log_likelihood_blocked",
     "log_likelihood_chunked",
+    "log_likelihood_sharded",
 ]
 
 
@@ -363,4 +368,83 @@ def log_likelihood_chunked(term, t, diag, resid, chunk=65536, inner_blocks=512):
             part, carry = _k1(coeffs, dt[lo:hi], dd[..., lo:hi], y[..., lo:hi], batch, inner,
                               lo == 0, carry)
             ll = part if ll is None else ll + part
+    return _with_scan_gradient(ll, term, t, diag, resid, coeffs, (tt, dd, y))
+
+
+def _shard_blocks(nl):
+    """K1's block count for a rank's stretch of ``nl`` samples: about
+    sqrt(2 nl), since the summary and innovation stages walk nl / nb steps
+    a thread and the carry stage walks nb."""
+    return max(1, min(nl, math.isqrt(2 * nl)))
+
+
+def _shard_first(coeffs, dt, diag, y, batch, d, idx):
+    """Stage 1 of rank ``idx`` of ``d``: its contiguous stretch composed by
+    K1 from the identity (its first ``dt`` the step from the sample before
+    it; only rank 0 starts from the stationary prior). Returns (rank 0's
+    log-likelihood [batch], None elsewhere; the packed block summary [rows,
+    S], K1's outgoing carry)."""
+    nl = dt.shape[0] // d
+    lo, hi = idx * nl, (idx + 1) * nl
+    ll, carry = _k1(coeffs, dt[lo:hi], diag[..., lo:hi], y[..., lo:hi], batch,
+                    _shard_blocks(nl), idx == 0, None)
+    return (ll if idx == 0 else None), pack_carry(carry)
+
+
+def _states(coeffs):
+    """R, the state size of a term's coefficients: its real slots and two
+    for each complex pair."""
+    return coeffs[0].shape[-1] + 2 * coeffs[2].shape[-1]
+
+
+def _shard_carry(summaries, idx, r):
+    """Rank ``idx``'s exclusive carry: the packed summaries [D, rows, S] of
+    ranks 0 .. idx-1 composed in order."""
+    run = unpack_carry(summaries[0], r)
+    for k in range(1, idx):
+        run = _combine(run, unpack_carry(summaries[k], r))
+    return run
+
+
+def _shard_second(coeffs, dt, diag, y, batch, d, idx, carry):
+    """Stage 2 of rank ``idx`` > 0: K1 over its stretch again, from its
+    exclusive carry. Returns its share of the log-likelihood [batch]."""
+    nl = dt.shape[0] // d
+    lo, hi = idx * nl, (idx + 1) * nl
+    ll, _ = _k1(coeffs, dt[lo:hi], diag[..., lo:hi], y[..., lo:hi], batch, _shard_blocks(nl),
+                False, carry)
+    return ll
+
+
+def log_likelihood_sharded(term, t, diag, resid, mesh, axis="seq"):
+    """GP log-likelihood [...] with the TIME axis sharded over a mesh axis.
+
+    The multi-rank extension of :func:`log_likelihood_blocked`: each of the
+    D ranks composes its contiguous N/D stretch with K1
+    (:func:`_shard_first`), one ``all_gather`` shares the D block summaries
+    (O(D R^2) values a row, independent of N), each rank composes those of
+    the ranks before it into its exclusive carry (:func:`_shard_carry`) and
+    runs K1 again from it (:func:`_shard_second`; rank 0 needs no second
+    call), and one ``all_reduce`` adds the innovation sums. Every rank
+    holds the whole series and returns the same value. N must divide by D.
+
+    Matches ``solver.log_likelihood`` for SHO-family terms. Its gradient is
+    the sequential solver's (see the module): every rank holds the whole
+    series, so each differentiates the scan on its own.
+    """
+    d, idx, group = axis_info(mesh, axis)
+    coeffs, tt, dd, y, batch = _prepared(term, t, diag, resid)
+    n = tt.shape[0]
+    if n % d:
+        raise ValueError(f"n={n} must be divisible by mesh axis size {d}")
+    with torch.no_grad(), full_float32():
+        dt = torch.cat([tt.new_zeros(1), torch.diff(tt)])
+        ll, summary = _shard_first(coeffs, dt, dd, y, batch, d, idx)
+        parts = [torch.empty_like(summary) for _ in range(d)]
+        dist.all_gather(parts, summary.contiguous(), group=group)
+        if idx:
+            ll = _shard_second(coeffs, dt, dd, y, batch, d, idx,
+                               _shard_carry(torch.stack(parts), idx, _states(coeffs)))
+        ll = ll.contiguous()
+        dist.all_reduce(ll, group=group)
     return _with_scan_gradient(ll, term, t, diag, resid, coeffs, (tt, dd, y))

@@ -143,10 +143,14 @@ def test_minimize_sets_the_gp_at_the_optimum(spotted):
 
 
 def test_unported_solvers_and_samplers_name_their_slice(spotted):
-    """Only the sharded solver is left (slice A8); an unknown one is an error."""
+    """Every solver is ported: an unknown one is an error, and the sharded
+    one without a mesh raises as JAX's does (its parity is in
+    test_torch_parallel_gp.py)."""
     t, y, dy = spotted
     sig = TSeries(t[:50], y[:50], device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="solver='sharded' needs a "):
+        JBrownianGP(JTSeries(t[:50], y[:50]), err=dy[:50], solver="sharded")
+    with pytest.raises(ValueError, match="solver='sharded' needs a "):
         BrownianGP(sig, err=dy[:50], solver="sharded")
     with pytest.raises(ValueError, match="unknown solver"):
         BrownianGP(sig, err=dy[:50], solver="dense")

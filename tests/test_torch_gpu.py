@@ -1291,3 +1291,192 @@ def test_modelers_nuts_and_solvers_on_card(cuda):
                          torch.from_numpy(dy[:n]).to(cuda))
     samples, _ = qp.nuts(n_chains=2, n_steps=6, n_warmup=4, burn=1, max_depth=3, random_seed=0)
     assert samples.shape == (qp.ndim, 10) and np.all(np.isfinite(samples))
+
+
+# -- the parallel package and the sharded GP at world size 1 (NCCL), and D = 4
+# ranks' stages in turn on the card against the CPU ---------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A world of one on NCCL, started by default_mesh and destroyed when
+    the module ends."""
+    import torch.distributed as dist
+
+    from periodicity_tpu_torch.parallel import default_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    started = not dist.is_initialized()
+    yield default_mesh(("grid",))
+    if started and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_sharded_scans_at_world_one_are_the_kernel_calls(cuda, nccl_mesh):
+    """sharded_gls through the spreading kernel, bit-equal to gls_power;
+    sharded_bls / sharded_aov through the fold kernel within 1e-5 of the
+    largest value of their unsharded calls with the same best period (the
+    fold adds weighted values with float atomics, so no two launches need
+    agree bit for bit)."""
+    from periodicity_tpu_torch.models.phase import aov_scan, bls_scan
+    from periodicity_tpu_torch.parallel import sharded_aov, sharded_bls, sharded_gls
+
+    rng = np.random.default_rng(34)
+    t = np.sort(rng.uniform(0, 100, 2000)).astype(np.float32)
+    y = (np.sin(2 * np.pi * t / 7.7) + 0.3 * rng.standard_normal(2000)).astype(np.float32)
+    tc, yc = torch.from_numpy(t).to(cuda), torch.from_numpy(y).to(cuda)
+    ec = torch.full_like(tc, 0.3)
+    before = extirpolate_grid_factored.launches
+    got = sharded_gls(tc, yc, ec, 0.002, 0.001, 4000, nccl_mesh, gridder="kernel")
+    assert extirpolate_grid_factored.launches == before + 3
+    assert torch.equal(got.full_tensor(), gls_power(tc, yc, ec, 0.002, 0.001, 4000,
+                                                    gridder="kernel"))
+    periods = torch.linspace(2.0, 20.0, 1024, dtype=torch.float64, device=cuda)
+    w = torch.full_like(tc, 1.0 / 2000)
+    before = fold_onehot.launches
+    out = sharded_bls(tc, yc, w, periods, nccl_mesh, binner="kernel")
+    assert fold_onehot.launches == before + 16
+    want = bls_scan(tc, yc, w, periods, widths=(3, 13, 26), binner="kernel")
+    for a, b in zip(out[:2], want[:2]):
+        a = a.full_tensor()
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    best = int(torch.argmax(want[0]))
+    assert int(torch.argmax(out[0].full_tensor())) == best
+    aov = sharded_aov(tc, yc, periods, nccl_mesh, binner="auto").full_tensor()
+    ref = aov_scan(tc, yc, periods, binner="kernel")
+    assert float((aov - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert int(torch.argmax(aov)) == int(torch.argmax(ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_distributed_fft_stages_on_card_match_cpu(cuda, nccl_mesh, dtype):
+    """World size 1 against torch.fft, and D = 4 ranks' stages in turn on the
+    card against the same stages on the CPU (1e-12 of max|X| in f64, 1e-5 in
+    f32) and against the f64 FFT in natural order."""
+    from chip_smoke import in_turn_fft, in_turn_ifft
+    from periodicity_tpu_torch.parallel import default_mesh, distributed_acf, distributed_fft
+
+    smesh = default_mesh(("seq",))
+    rng = np.random.default_rng(35)
+    n = 1 << 16
+    x = torch.from_numpy(rng.standard_normal(n)).to(dtype)
+    cd = torch.complex128 if dtype == torch.float64 else torch.complex64
+    X1 = distributed_fft(x.to(cuda), smesh).full_tensor()
+    assert torch.equal(X1, torch.fft.fft(x.to(cuda).to(cd)))
+    Xc, Xh = in_turn_fft(x.to(cuda), 4).cpu(), in_turn_fft(x, 4)
+    scale = float(Xh.abs().max())
+    lim = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float((Xc - Xh).abs().max()) <= lim * scale
+    nat = torch.empty(n, dtype=cd)
+    for r in range(4):
+        nat[r::4] = Xc.reshape(4, n // 4)[r]
+    ref = torch.fft.fft(x.double())
+    assert float((nat.to(torch.complex128) - ref).abs().max()) <= (
+        1e-9 if dtype == torch.float64 else 1e-5) * scale
+    back = in_turn_ifft(Xc.to(cuda), 4).real.cpu()
+    assert float((back.double() - x.double()).abs().max()) <= (
+        1e-10 if dtype == torch.float64 else 1e-4)
+    if dtype == torch.float64:
+        yv = torch.sin(2 * np.pi * torch.arange(n, dtype=dtype) / 64) + 0.2 * x
+        acf = distributed_acf(yv.to(cuda), smesh, max_lag=n // 2).cpu()
+        want = TSeries(torch.arange(float(n), dtype=dtype), yv, device="cpu").acf(
+            max_lag=n // 2).values
+        assert float((acf - want).abs().max()) <= 1e-10
+
+
+def test_sharded_likelihood_on_card_matches_cpu(cuda, nccl_mesh):
+    """World size 1 is one K1 call over the series (the card's against the
+    CPU's within 1e-12, f64); D = 4 ranks' stages in turn, card against CPU
+    within 1e-12 and against the one-rank value within 1e-10; the gradient
+    is the scan's."""
+    from chip_smoke import in_turn_ll
+    from periodicity_tpu_torch.gp import (BrownianTerm, log_likelihood, log_likelihood_blocked,
+                                          log_likelihood_sharded)
+    from periodicity_tpu_torch.models.gp.pscan import _shard_blocks
+    from periodicity_tpu_torch.ops.kalman import kalman_blocked
+    from periodicity_tpu_torch.parallel import default_mesh
+
+    smesh = default_mesh(("seq",))
+    rng = np.random.default_rng(36)
+    n = 4000
+    t = np.sort(rng.uniform(0, 400, n))
+    y = np.sin(2 * np.pi * t / 20.0) + 0.1 * rng.standard_normal(n)
+    data = [torch.from_numpy(a) for a in (t, np.full(n, 0.01), y - y.mean())]
+    term = BrownianTerm(0.01, 20.0, 10.0, 0.3)
+    before = kalman_blocked.launches
+    card = float(log_likelihood_sharded(term, *(a.to(cuda) for a in data), smesh))
+    assert kalman_blocked.launches == before + 1
+    host = float(log_likelihood_blocked(term, *data, n_blocks=_shard_blocks(n)))
+    assert card == pytest.approx(host, rel=1e-12)
+    d4_card = float(in_turn_ll(term, *(a.to(cuda) for a in data), 4)[0])
+    d4_host = float(in_turn_ll(term, *data, 4)[0])
+    assert d4_card == pytest.approx(d4_host, rel=1e-12)
+    assert d4_card == pytest.approx(card, rel=1e-10)
+    grads = {}
+    for name, fn in (("scan", log_likelihood),
+                     ("sharded", lambda *a: log_likelihood_sharded(*a, smesh))):
+        pg = torch.tensor([0.01, 20.0, 10.0, 0.3], dtype=torch.float64, device=cuda,
+                          requires_grad=True)
+        ll = fn(BrownianTerm(pg[0], pg[1], pg[2], pg[3]), *(a.to(cuda) for a in data))
+        (grads[name],) = torch.autograd.grad(ll, pg)
+    assert torch.equal(grads["sharded"], grads["scan"])
+
+
+def test_sharded_sampler_and_modeler_on_card(cuda, nccl_mesh):
+    """The sampler's half-updates on injected draws, card against CPU (f64,
+    1e-12), and BrownianGP(solver="sharded") on the card against its scan
+    (nll and gradient within 1e-10)."""
+    from periodicity_tpu_torch.gp import BrownianGP
+    from periodicity_tpu_torch.models.gp.mcmc import _sharded_chain
+    from periodicity_tpu_torch.parallel import default_mesh
+
+    rng = np.random.default_rng(37)
+    mu, sd = np.array([1.0, -2.0]), np.array([0.5, 2.0])
+    x0 = rng.standard_normal((16, 2))
+    draws = [[(rng.random(16), rng.integers(0, 8, 16), rng.random(16)) for _ in range(2)]
+             for _ in range(6)]
+    chains = {}
+    for dev in (torch.device("cpu"), cuda):
+        m, s = (torch.from_numpy(a).to(dev) for a in (mu, sd))
+        dd = [[tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in h) for h in st]
+              for st in draws]
+        chain, _, acc = _sharded_chain(lambda x: -0.5 * torch.sum(((x - m) / s) ** 2, dim=-1),
+                                       torch.from_numpy(x0).to(dev), 0, 8, 6,
+                                       lambda step, k: dd[step][k], lambda x: x, 2.0)
+        chains[dev.type] = (chain.cpu(), acc.cpu())
+    assert torch.equal(chains["cuda"][1], chains["cpu"][1])
+    np.testing.assert_allclose(chains["cuda"][0].numpy(), chains["cpu"][0].numpy(), rtol=0,
+                               atol=1e-12)
+    t, y, dy = SpottedStar()
+    sig = TSeries(torch.from_numpy(t).to(cuda), torch.from_numpy(y).to(cuda))
+    err = torch.from_numpy(dy).to(cuda)
+    shard = BrownianGP(sig, err=err, solver="sharded", mesh=default_mesh(("seq",)))
+    scan = BrownianGP(sig, err=err)
+    vals = []
+    for mm in (shard, scan):
+        u = torch.full((6,), 40.0, dtype=torch.float64, device=cuda, requires_grad=True)
+        f = mm._nll_u(u)
+        vals.append((float(f.detach()), torch.autograd.grad(f, u)[0]))
+    assert vals[0][0] == pytest.approx(vals[1][0], rel=1e-10)
+    assert float((vals[0][1] - vals[1][1]).abs().max()) <= 1e-10 * float(vals[1][1].abs().max())
+
+
+def test_trace_names_the_spreading_kernel(cuda, tmp_path):
+    import json
+    import os
+
+    from periodicity_tpu_torch.utils import timer, trace
+
+    t = torch.sort(torch.rand(2000, device=cuda) * 100)[0]
+    y = torch.sin(2 * np.pi * t / 7.7)
+    with trace(tmp_path):
+        gls_power(t, y, torch.ones_like(t), 0.002, 0.001, 4000, pair_q=1, gridder="kernel")
+        torch.cuda.synchronize()
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("spread_walk" in n for n in names)
+    with timer() as tm:
+        gls_power(t, y, torch.ones_like(t), 0.002, 0.001, 4000, pair_q=1, gridder="kernel")
+    assert tm["seconds"] > 0
