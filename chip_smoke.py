@@ -165,8 +165,10 @@ kernels, and checks every phase:
 34. the parallel package at world size 1 through NCCL (``default_mesh``
    starts a group of one): ``sharded_gls`` at the bench shape through the
    spreading kernel, ``sharded_bls`` at config 11 and ``sharded_aov``
-   through the fold kernel, ``sharded_pdm`` at config 4, each bit-equal to
-   its unsharded call and timed beside it; ``distributed_fft``,
+   through the fold kernel, ``sharded_pdm`` at config 4, each timed beside
+   its unsharded call: GLS and PDM bit-equal to it, BLS and AoV within 1e-5
+   of the largest value with the same best period (the fold kernel adds
+   with float atomics, so two of its launches differ); ``distributed_fft``,
    ``distributed_ifft`` and ``distributed_acf`` of one series of 2^24
    samples in float32 and 2^22 in float64 against the float64 FFT, cuFFT
    and the container's ACF;
@@ -178,8 +180,10 @@ kernels, and checks every phase:
    nll and gradient against ``solver="scan"``;
 36. ``utils.trace`` around one bench-shape periodogram (the exported trace
    names the spreading kernel) and ``utils.timer``. Phases 34-36 are this
-   slice's main path: the counts of B1, B2 and K1 are zeroed before it and
-   each must have launched in it;
+   slice's main path: the counts of B1, B2 and K1 are zeroed before it, each
+   sharded call's launches are counted around it and held (3 B1 a
+   ``sharded_gls``, one B2 a chunk, one K1 a likelihood at world size 1),
+   and their sums, which must be above 0, are the path's launches;
 37. D = 4 ranks' stages of ``sharded_gls``, ``sharded_bls``,
    ``distributed_fft`` and ``log_likelihood_sharded``, each rank in turn on
    the card (the collectives done by the join), against the same stages on
@@ -3863,16 +3867,151 @@ def in_turn_ll(term, t, diag, y, d):
     coeffs, tt, dd, yy, batch = pscan._prepared(term, t, diag, y)
     with torch.no_grad(), full_float32():
         dt = torch.cat([tt.new_zeros(1), torch.diff(tt)])
-        firsts = [pscan._shard_first(coeffs, dt, dd, yy, batch, d, i) for i in range(d)]
+        firsts = [pscan._shard_pass(coeffs, dt, dd, yy, batch, d, i, None) for i in range(d)]
         summaries = torch.stack([f[1] for f in firsts])
         shares = [firsts[0][0]] + [
-            pscan._shard_second(coeffs, dt, dd, yy, batch, d, i,
-                                pscan._shard_carry(summaries, i, pscan._states(coeffs)))
+            pscan._shard_pass(coeffs, dt, dd, yy, batch, d, i,
+                              pscan._shard_carry(summaries, i, pscan._states(coeffs)))[0]
             for i in range(1, d)]
     total = shares[0]
     for s in shares[1:]:
         total = total + s
     return total, shares
+
+
+def counted(tally, kernel, want, fn, label):
+    """One call of the slice's main path: ``fn()``'s launches of ``kernel``
+    (a wrapper with a ``launches`` count), held equal to ``want`` and added
+    to ``tally`` under the kernel's name. Returns ``fn()``."""
+    before = kernel.launches
+    got = fn()
+    n = kernel.launches - before
+    check(n == want, f"{label}: {want} {kernel.__name__} launches, got {n}")
+    tally[kernel.__name__] = tally.get(kernel.__name__, 0) + n
+    return got
+
+
+def turns_ms(sharded, unsharded, reps=3, before=None):
+    """Event times (ms) of a sharded call and the unsharded call it stands
+    beside: one warm-up each, then in turns unsharded, sharded, sharded,
+    unsharded; ``before`` runs ahead of every turn (a barrier over ranks)."""
+    sharded(), unsharded()
+    runs = {"sharded": [], "unsharded": []}
+    for which in ("unsharded", "sharded", "sharded", "unsharded"):
+        if before is not None:
+            before()
+        runs[which].append(event_ms(sharded if which == "sharded" else unsharded, reps))
+    return {k: statistics.mean(v) for k, v in runs.items()}
+
+
+def sharded_ll_points(smesh, cuda, tally, timed):
+    """Config 7's points (N = 1e4, 1e5, 1e6, live BrownianTerm) through
+    ``log_likelihood_sharded`` over ``smesh``'s ranks, f32 and f64, against
+    the f64 scan within phase 32's limits; over more than one rank also
+    against the ranks' stages in turn on this card (``in_turn_ll``; f64
+    1e-12, f32 1e-6: a sum of the ranks' shares in another order). Each
+    call launches K1 once on rank 0 and twice elsewhere (held, added to
+    ``tally``). ``timed(name, sharded, unsharded)`` times the f32 call
+    beside ``log_likelihood_blocked`` at the same blocks. Returns the
+    records by point."""
+    import torch
+
+    from periodicity_tpu_torch.gp import log_likelihood, log_likelihood_blocked
+    from periodicity_tpu_torch.models.gp import pscan
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm
+    from periodicity_tpu_torch.ops import kalman as K
+
+    term = BrownianTerm(0.01, 20.0, 10.0, 0.3)
+    d, k1 = smesh.size(), 1 if smesh.get_local_rank() == 0 else 2
+    recs = {}
+    for n in C7_SOLVER_NS + (C7_CHUNKED_N,):
+        t7, y7 = c7_series(np.random.default_rng(0), n)
+        tt, yy = cuda(t7), cuda(y7)
+        diag = torch.full_like(tt, 0.01)
+        rec = {}
+        with torch.no_grad():
+            ref = float(log_likelihood(term, tt.double(), diag.double(), yy.double()))
+            for dname, args in (("f32", (tt, diag, yy)),
+                                ("f64", (tt.double(), diag.double(), yy.double()))):
+                label = f"log_likelihood_sharded N={n} {dname}"
+                ll = float(counted(tally, K.kalman_blocked, k1,
+                                   lambda: pscan.log_likelihood_sharded(term, *args, smesh),
+                                   label))
+                rel = abs(ll - ref) / abs(ref)
+                limit = (F64_LL_REL if dname == "f64" else F32_LL_REL if n == C7_SOLVER_NS[0]
+                         else F32_LL_REL_LONG[n])
+                check(rel <= limit, f"{label}: {rel:.2e} from the f64 scan (limit {limit})")
+                rec[f"{dname}_rel"] = rel
+                if d > 1:
+                    stages = float(in_turn_ll(term, *args, d)[0])
+                    rs = abs(ll - stages) / abs(stages)
+                    check(rs <= (PAR_F64_CPU if dname == "f64" else 1e-6),
+                          f"{label}: {rs:.2e} from the ranks' stages in turn")
+                    rec[f"{dname}_rel_vs_stages"] = rs
+            timed(f"log_likelihood_sharded_N{n}",
+                  lambda: pscan.log_likelihood_sharded(term, tt, diag, yy, smesh),
+                  lambda: log_likelihood_blocked(term, tt, diag, yy,
+                                                 n_blocks=pscan._shard_blocks(n)))
+        recs[f"N{n}"] = rec
+    return recs
+
+
+def sharded_moments(wmesh, dev):
+    """JAX's moment test (tests/test_parallel.py:109-134) through
+    ``run_ensemble_sharded`` over ``wmesh``'s ranks: 64 walkers x 1500
+    steps on a 2-D Gaussian. Returns (acceptance, the means' largest
+    absolute error, the deviations' largest relative error)."""
+    import torch
+
+    from periodicity_tpu_torch.models.gp import mcmc
+
+    mu = torch.tensor([1.0, -2.0], device=dev)
+    sd = torch.tensor([0.5, 2.0], device=dev)
+    x0 = torch.randn(64, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        chain, _, acc = mcmc.run_ensemble_sharded(
+            lambda x: -0.5 * torch.sum(((x - mu) / sd) ** 2, dim=-1), x0, 1, 1500, wmesh)
+    samples = chain.full_tensor()[500:].reshape(-1, 2).double()
+    m_err = float((samples.mean(0) - mu.double()).abs().max())
+    s_rel = float(((samples.std(0) - sd.double()).abs() / sd.double()).max())
+    check(0.1 < acc < 0.95 and m_err <= 0.15 and s_rel <= 0.15,
+          f"run_ensemble_sharded moments: acceptance {acc}, mean {m_err}, std {s_rel}")
+    return acc, m_err, s_rel
+
+
+def sharded_modeler(smesh, cuda, tally):
+    """``BrownianGP(SpottedStar, solver="sharded")`` over ``smesh`` against
+    ``solver="scan"`` at 3 draws of u: nll and its gradient within
+    PAR_ONE_RANK. Each sharded nll launches K1 once on rank 0 and twice
+    elsewhere (held, added to ``tally``; the gradient is the scan's).
+    Returns (nll relative error, gradient relative error)."""
+    import torch
+
+    from periodicity_tpu_torch import TSeries
+    from periodicity_tpu_torch import data as pdata
+    from periodicity_tpu_torch.gp import BrownianGP
+    from periodicity_tpu_torch.ops import kalman as K
+
+    t5, y5, dy5 = pdata.SpottedStar()
+    sig = TSeries(cuda(t5), cuda(y5))
+    m_scan = BrownianGP(sig, err=cuda(dy5))
+    m_shard = BrownianGP(sig, err=cuda(dy5), solver="sharded", mesh=smesh)
+    k1 = 1 if smesh.get_local_rank() == 0 else 2
+    d_nll = d_grad = 0.0
+    for u in np.random.default_rng(35).uniform(5, 95, (3, m_scan.ndim)):
+        uu = cuda(u).requires_grad_(True)
+        f = counted(tally, K.kalman_blocked, k1, lambda: m_shard._nll_u(uu),
+                    "BrownianGP(solver='sharded') nll")
+        (g,) = torch.autograd.grad(f, uu)
+        uu = cuda(u).requires_grad_(True)
+        f_scan = m_scan._nll_u(uu)
+        (g_scan,) = torch.autograd.grad(f_scan, uu)
+        d_nll = max(d_nll, abs(float(f.detach()) - float(f_scan.detach()))
+                    / abs(float(f_scan.detach())))
+        d_grad = max(d_grad, float((g - g_scan).abs().max() / g_scan.abs().max()))
+    check(d_nll <= PAR_ONE_RANK and d_grad <= PAR_ONE_RANK,
+          f"BrownianGP(solver='sharded') vs scan: nll {d_nll:.2e}, gradient {d_grad:.2e}")
+    return d_nll, d_grad
 
 
 def parallel_slice(dev, card, cuda):
@@ -3890,7 +4029,7 @@ def parallel_slice(dev, card, cuda):
 
     from periodicity_tpu_torch import TSeries
     from periodicity_tpu_torch import data as pdata
-    from periodicity_tpu_torch.gp import BrownianGP, log_likelihood, log_likelihood_blocked
+    from periodicity_tpu_torch.gp import log_likelihood
     from periodicity_tpu_torch.models.gp import mcmc, pscan
     from periodicity_tpu_torch.models.gp.terms import BrownianTerm
     from periodicity_tpu_torch.models.phase import aov_scan, bls_scan, pdm_scan
@@ -3910,35 +4049,33 @@ def parallel_slice(dev, card, cuda):
 
     def overhead(name, sharded, plain, reps=3, phase=34):
         """Event times of the sharded call and its unsharded call, in turns."""
-        sharded(), plain()
-        runs = {"sharded": [], "plain": []}
-        for which in ("plain", "sharded", "sharded", "plain"):
-            runs[which].append(event_ms(sharded if which == "sharded" else plain, reps))
-        got = {k: statistics.mean(v) for k, v in runs.items()}
+        got = turns_ms(sharded, plain, reps)
         out.setdefault("world1_ms", {})[name] = got
         print(f"phase {phase} world size 1 {name}: sharded {got['sharded']:.4f} ms, unsharded "
-              f"{got['plain']:.4f} ms, overhead {got['sharded'] - got['plain']:+.4f} ms  ({card})")
+              f"{got['unsharded']:.4f} ms, overhead {got['sharded'] - got['unsharded']:+.4f} ms  "
+              f"({card})")
 
     # phase 34: the sharded scans and transforms at world size 1 (NCCL,
-    # a HashStore group the mesh starts itself), bit-equal to the unsharded
-    # calls through the kernels; the slice's main path starts here
+    # a HashStore group the mesh starts itself) against the unsharded calls
+    # through the kernels; the slice's main path starts here, and
+    # ``tally`` sums the launches of its sharded calls alone
     mesh = default_mesh(("grid",))
     check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
           and mesh.device_type == "cuda", "default_mesh: a world of one on NCCL")
     extirpolate_grid_factored.launches = 0
     fold_onehot.launches = 0
     K.kalman_blocked.launches = 0
+    tally = {}
     t, y, err = bench_draw()
     tc, yc, ec = cuda(t), cuda(y), cuda(err)
     df = float(np.float32(0.5 / BASELINE))
     fmin = float(np.float32(df / 2))
-    b1 = extirpolate_grid_factored.launches
-    got = sharded_gls(tc, yc, ec, df, fmin, NF, mesh, gridder="kernel")
-    b1 = extirpolate_grid_factored.launches - b1
+    got = counted(tally, extirpolate_grid_factored, 3,
+                  lambda: sharded_gls(tc, yc, ec, df, fmin, NF, mesh, gridder="kernel"),
+                  "sharded_gls (no pair_q, as JAX)")
     want = gls_power(tc, yc, ec, df, fmin, NF, gridder="kernel")
     check(bit_equal(got.full_tensor(), want) and got.to_local().shape == (NF,),
           "sharded_gls(gridder='kernel') bit-equal to gls_power at the bench shape")
-    check(b1 == 3, f"sharded_gls: 3 spreading launches (no pair_q, as JAX), got {b1}")
     overhead("sharded_gls_bench", lambda: sharded_gls(tc, yc, ec, df, fmin, NF, mesh,
                                                       gridder="kernel"),
              lambda: gls_power(tc, yc, ec, df, fmin, NF, gridder="kernel"))
@@ -3972,12 +4109,10 @@ def parallel_slice(dev, card, cuda):
         print(f"phase 34 {label}: sharded vs unsharded {d:.2e} of the largest value (bit-equal "
               f"{bits}); two unsharded calls {spread:.2e} apart (B2's float atomics)  ({card})")
 
-    b2 = fold_onehot.launches
-    got = sharded_bls(tbc, ybc, wb, pb, mesh, **kw)
-    b2 = fold_onehot.launches - b2
+    got = counted(tally, fold_onehot, -(-BLS_P // BLS_BATCH),
+                  lambda: sharded_bls(tbc, ybc, wb, pb, mesh, **kw), "sharded_bls: one a chunk")
     fold_close("sharded_bls config 11", got, bls_scan(tbc, ybc, wb, pb, **kw),
                bls_scan(tbc, ybc, wb, pb, **kw))
-    check(b2 == -(-BLS_P // BLS_BATCH), f"sharded_bls: one fold launch a chunk, got {b2}")
     overhead("sharded_bls_config11", lambda: sharded_bls(tbc, ybc, wb, pb, mesh, **kw),
              lambda: bls_scan(tbc, ybc, wb, pb, **kw), reps=1)
 
@@ -3993,7 +4128,9 @@ def parallel_slice(dev, card, cuda):
             ("sharded_pdm_config4", lambda: sharded_pdm(t4c, y4c, p4, mesh, batch_size=512),
              lambda: pdm_scan(t4c, y4c, p4, batch_size=512))):
         if "aov" in name:
-            fold_close("sharded_aov config 4", sharded(), plain(), plain())
+            got = counted(tally, fold_onehot, -(-C4_P // 512), sharded,
+                          "sharded_aov: one a chunk")
+            fold_close("sharded_aov config 4", got, plain(), plain())
         else:  # no kernel: the same eager operations
             check(bit_equal(sharded().full_tensor(), plain()), f"{name}: bit-equal to the scan")
         overhead(name, sharded, plain, reps=1)
@@ -4045,30 +4182,11 @@ def parallel_slice(dev, card, cuda):
     # phase 35: config 7's points through log_likelihood_sharded (world of
     # one: one K1 call over the series) against the f64 scan, C5's limits;
     # run_ensemble_sharded at config 8's size; the sharded modeler
-    term = BrownianTerm(0.01, 20.0, 10.0, 0.3)
-    c7 = {}
-    for n in C7_SOLVER_NS + (C7_CHUNKED_N,):
-        t7, y7 = c7_series(np.random.default_rng(0), n)
-        tt, yy = cuda(t7), cuda(y7)
-        diag = torch.full_like(tt, 0.01)
-        with torch.no_grad():
-            ref = float(log_likelihood(term, tt.double(), diag.double(), yy.double()))
-            ll32 = float(pscan.log_likelihood_sharded(term, tt, diag, yy, smesh))
-            ll64 = float(pscan.log_likelihood_sharded(term, tt.double(), diag.double(),
-                                                      yy.double(), smesh))
-        rel32, rel64 = abs(ll32 - ref) / abs(ref), abs(ll64 - ref) / abs(ref)
-        limit = F32_LL_REL if n == C7_SOLVER_NS[0] else F32_LL_REL_LONG[n]
-        check(rel32 <= limit and rel64 <= F64_LL_REL,
-              f"log_likelihood_sharded N={n}: f32 {rel32:.2e} (limit {limit}), f64 {rel64:.2e}")
-        c7[f"N{n}"] = {"f32_rel": rel32, "f64_rel": rel64}
-        with torch.no_grad():
-            overhead(f"log_likelihood_sharded_N{n}",
-                     lambda: pscan.log_likelihood_sharded(term, tt, diag, yy, smesh),
-                     lambda: log_likelihood_blocked(term, tt, diag, yy,
-                                                    n_blocks=pscan._shard_blocks(n)),
-                     reps=1, phase=35)
-        print(f"phase 35 log_likelihood_sharded config 7 N={n}: f32 {rel32:.3e} (limit {limit}), "
-              f"f64 {rel64:.2e} from the f64 scan  ({card})")
+    c7 = sharded_ll_points(smesh, cuda, tally,
+                           lambda name, sh, un: overhead(name, sh, un, reps=1, phase=35))
+    for n, rec in c7.items():
+        print(f"phase 35 log_likelihood_sharded config 7 {n}: f32 {rec['f32_rel']:.3e}, f64 "
+              f"{rec['f64_rel']:.2e} from the f64 scan  ({card})")
     out["config7"] = c7
 
     wmesh = default_mesh(("walkers",))
@@ -4115,17 +4233,7 @@ def parallel_slice(dev, card, cuda):
               "run_ensemble_sharded f64 on injected draws: accepts card vs CPU")
         rel8 = float(((runs["cuda"][0] - runs["cpu"][0]).abs() / runs["cpu"][0].abs()).max())
         check(rel8 <= PAR_F64_CPU, f"run_ensemble_sharded f64: card vs CPU {rel8:.2e}")
-        # JAX's moment test (tests/test_parallel.py:109-134) on the card
-        mu = torch.tensor([1.0, -2.0], device=dev)
-        sd = torch.tensor([0.5, 2.0], device=dev)
-        x0g = torch.randn(64, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-        cg, _, accg = mcmc.run_ensemble_sharded(
-            lambda x: -0.5 * torch.sum(((x - mu) / sd) ** 2, dim=-1), x0g, 1, 1500, wmesh)
-        samples = cg.full_tensor()[500:].reshape(-1, 2).double()
-        m_err = float((samples.mean(0) - mu.double()).abs().max())
-        s_rel = float(((samples.std(0) - sd.double()).abs() / sd.double()).max())
-        check(0.1 < accg < 0.95 and m_err <= 0.15 and s_rel <= 0.15,
-              f"run_ensemble_sharded moments: acceptance {accg}, mean {m_err}, std {s_rel}")
+    accg, m_err, s_rel = sharded_moments(wmesh, dev)
     out["sampler"] = {"config8_walker_steps_per_s": C8_WALKERS * C8_STEPS / s8,
                       "config8_seconds": s8, "run_ensemble_seconds": s8_plain,
                       "acceptance": acc, "f64_cpu_rel": rel8, "moments_mean_abs": m_err,
@@ -4135,22 +4243,7 @@ def parallel_slice(dev, card, cuda):
           f"acceptance {acc:.3f}; f64 on injected draws card vs CPU {rel8:.1e}; 2-D Gaussian "
           f"mean within {m_err:.3f}, std within {s_rel:.3f}  ({card})")
 
-    sig = TSeries(cuda(t5), cuda(y5))
-    m_scan = BrownianGP(sig, err=cuda(dy5))
-    m_shard = BrownianGP(sig, err=cuda(dy5), solver="sharded", mesh=smesh)
-    d_nll = d_grad = 0.0
-    for u in np.random.default_rng(35).uniform(5, 95, (3, m_scan.ndim)):
-        vals = []
-        for mm in (m_shard, m_scan):
-            uu = cuda(u).requires_grad_(True)
-            f = mm._nll_u(uu)
-            (g,) = torch.autograd.grad(f, uu)
-            vals.append((float(f.detach()), g))
-        d_nll = max(d_nll, abs(vals[0][0] - vals[1][0]) / abs(vals[1][0]))
-        d_grad = max(d_grad, float((vals[0][1] - vals[1][1]).abs().max()
-                                   / vals[1][1].abs().max()))
-    check(d_nll <= PAR_ONE_RANK and d_grad <= PAR_ONE_RANK,
-          f"BrownianGP(solver='sharded') vs scan: nll {d_nll:.2e}, gradient {d_grad:.2e}")
+    d_nll, d_grad = sharded_modeler(smesh, cuda, tally)
     out["modeler"] = {"nll_rel_vs_scan": d_nll, "grad_rel_vs_scan": d_grad}
     print(f"phase 35 BrownianGP(SpottedStar, solver='sharded'): nll within {d_nll:.1e} and its "
           f"gradient within {d_grad:.1e} of solver='scan'  ({card})")
@@ -4174,18 +4267,20 @@ def parallel_slice(dev, card, cuda):
     out["profiling"] = {"trace_kernels": spread, "timer_s": tm["seconds"]}
     print(f"phase 36 trace: {len(names)} event names, the spreading kernel as {spread[:1]}; "
           f"timer {tm['seconds'] * 1e3:.3f} ms a bench-shape periodogram  ({card})")
-    launches = {"extirpolate_grid_factored": extirpolate_grid_factored.launches,
-                "fold_onehot": fold_onehot.launches, "kalman_blocked": K.kalman_blocked.launches}
+    launches = {k.__name__: tally.get(k.__name__, 0)
+                for k in (extirpolate_grid_factored, fold_onehot, K.kalman_blocked)}
     check(all(v > 0 for v in launches.values()),
-          f"B1, B2 and K1 launched on the slice's main path: {launches}")
+          f"B1, B2 and K1 launched by the slice's sharded calls: {launches}")
     out["main_path_launches"] = launches
-    print(f"phase 36 main path (phases 34-36): {launches['extirpolate_grid_factored']} B1, "
-          f"{launches['fold_onehot']} B2 and {launches['kalman_blocked']} K1 launches")
+    print(f"phase 36 main path (phases 34-36, the sharded calls): "
+          f"{launches['extirpolate_grid_factored']} B1, {launches['fold_onehot']} B2 and "
+          f"{launches['kalman_blocked']} K1 launches")
     t36 = time.perf_counter()
 
     # phase 37: D = 4 ranks' stages in turn on the card, joined, against
     # the same stages on the CPU, with each rank's stage times
     stages = {}
+    term = BrownianTerm(0.01, 20.0, 10.0, 0.3)
 
     def rank_ms(name, fns):
         stages[name] = [event_ms(fn, 1) for fn in fns]

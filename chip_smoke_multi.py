@@ -6,15 +6,18 @@ Run from the root of a checkout on a machine with several GPUs::
     python3 -c "from periodicity_tpu_torch.ops import _kernels; _kernels.build()"
     torchrun --nproc-per-node=4 chip_smoke_multi.py
 
-Every rank drives the sharded paths at the one-card smoke's shapes (the GLS
-bench shape through B1, config 11's BLS through B2, the distributed FFT of
-2^24 f32 and 2^22 f64 samples, config 7's likelihood at N = 1e5 f64 and
-1e6 f32 through K1, the sampler's moment test, the sharded modeler on
-SpottedStar) and holds each against the same D ranks' stages run in turn
-on its own card (``chip_smoke.in_turn_*``, which ``chip_smoke.py`` phase 37
-holds against the CPU). Rank 0 prints the times of the sharded calls beside
-the one-card calls and a ``{"multi": ...}`` line; any failed check exits
-non-zero.
+Every rank drives the sharded paths at the one-card smoke's shapes and
+holds each against the same D ranks' stages run in turn on its own card
+(``chip_smoke.in_turn_*``, which ``chip_smoke.py`` phase 37 holds against
+the CPU): the GLS bench shape through B1, config 11's BLS through B2, the
+distributed FFT of 2^24 f32 and 2^22 f64 samples and the f64 ACF. The
+checks that do not depend on the world size are ``chip_smoke.py``'s own,
+called with this run's meshes: config 7's likelihood points through K1
+(``sharded_ll_points``), the sampler's moment test (``sharded_moments``)
+and the sharded modeler on SpottedStar (``sharded_modeler``). Each sharded
+call's kernel launches are counted around it and held. Rank 0 prints the
+times of the sharded calls beside the one-card calls and a ``{"multi":
+...}`` line; any failed check exits non-zero.
 """
 
 import json
@@ -36,11 +39,9 @@ def main():
         return 1
     import chip_smoke as cs
     from periodicity_tpu_torch import TSeries
-    from periodicity_tpu_torch import data as pdata
-    from periodicity_tpu_torch.gp import BrownianGP, log_likelihood, log_likelihood_blocked
-    from periodicity_tpu_torch.models.gp import mcmc, pscan
-    from periodicity_tpu_torch.models.gp.terms import BrownianTerm
     from periodicity_tpu_torch.models.phase import bls_scan
+    from periodicity_tpu_torch.ops.fold import fold_onehot
+    from periodicity_tpu_torch.ops.grid2 import extirpolate_grid_factored
     from periodicity_tpu_torch.parallel import (default_mesh, distributed_acf, distributed_fft,
                                                 multihost_mesh, sharded_bls, sharded_gls)
     from periodicity_tpu_torch.spectral import gls_power
@@ -55,32 +56,30 @@ def main():
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
     out = {"card": card, "ranks": d}
+    tally = {}
     start = time.perf_counter()
 
     def cuda(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    def timed(name, sharded, one_card, reps=3):
+    def timed(name, sharded, one_card, reps=1):
         """Event times of the sharded call (every rank at once) and of the
-        one-card call, in turns."""
-        sharded(), one_card()
-        runs = {"sharded": [], "one_card": []}
-        for which in ("one_card", "sharded", "sharded", "one_card"):
-            dist.barrier()
-            runs[which].append(cs.event_ms(sharded if which == "sharded" else one_card, reps))
-        out.setdefault("ms", {})[name] = {k: sum(v) / len(v) for k, v in runs.items()}
+        one-card call, in turns, a barrier before each."""
+        out.setdefault("ms", {})[name] = cs.turns_ms(sharded, one_card, reps, dist.barrier)
 
     # the GLS bench shape: each rank's sub-band through B1
     t, y, err = cs.bench_draw()
     tc, yc, ec = cuda(t), cuda(y), cuda(err)
     df = float(np.float32(0.5 / cs.BASELINE))
     fmin = float(np.float32(df / 2))
-    got = sharded_gls(tc, yc, ec, df, fmin, cs.NF, mesh, gridder="kernel").full_tensor()
+    got = cs.counted(tally, extirpolate_grid_factored, 3,
+                     lambda: sharded_gls(tc, yc, ec, df, fmin, cs.NF, mesh, gridder="kernel"),
+                     "sharded_gls on each rank").full_tensor()
     cs.check(cs.bit_equal(got, cs.in_turn_gls(tc, yc, ec, df, fmin, cs.NF, d, "kernel")),
              "sharded_gls over the ranks bit-equal to their stages in turn")
     timed("sharded_gls_bench", lambda: sharded_gls(tc, yc, ec, df, fmin, cs.NF, mesh,
                                                    gridder="kernel"),
-          lambda: gls_power(tc, yc, ec, df, fmin, cs.NF, gridder="kernel"))
+          lambda: gls_power(tc, yc, ec, df, fmin, cs.NF, gridder="kernel"), reps=3)
 
     # config 11's BLS: each rank's periods through B2 (float atomics: held
     # within 1e-5 of the peak, the same best period)
@@ -90,14 +89,16 @@ def main():
     pb = cuda(np.linspace(0.5, 100.0, cs.BLS_P))
     kw = dict(widths=tuple(max(1, int(round(q * cs.BLS_NBINS))) for q in cs.BLS_DURATIONS),
               nbins=cs.BLS_NBINS, batch_size=cs.BLS_BATCH, binner="kernel")
-    got = sharded_bls(tbc, ybc, wb, pb, mesh, **kw)[0].full_tensor()
+    got = cs.counted(tally, fold_onehot, -(-(cs.BLS_P // d) // cs.BLS_BATCH),
+                     lambda: sharded_bls(tbc, ybc, wb, pb, mesh, **kw),
+                     "sharded_bls: one a chunk of each rank's periods")[0].full_tensor()
     want = cs.in_turn_bls(tbc, ybc, wb, pb, d, **kw)[0]
     d_bls = float((got - want).abs().max() / want.abs().max())
     cs.check(d_bls <= 1e-5 and int(torch.argmax(got)) == int(torch.argmax(want)),
              f"sharded_bls over the ranks vs their stages in turn: {d_bls:.2e}")
     out["bls_rel"] = d_bls
     timed("sharded_bls_config11", lambda: sharded_bls(tbc, ybc, wb, pb, mesh, **kw),
-          lambda: bls_scan(tbc, ybc, wb, pb, **kw), reps=1)
+          lambda: bls_scan(tbc, ybc, wb, pb, **kw))
 
     # the distributed FFT through NCCL's all_to_all, and the ACF
     smesh = default_mesh(("seq",))
@@ -113,7 +114,7 @@ def main():
         out[f"fft_{dname}"] = {"rel_vs_stages": d_fft, "bit_equal": cs.bit_equal(
             torch.view_as_real(X), torch.view_as_real(ref))}
         timed(f"distributed_fft_{dname}_N{n}", lambda x=x: distributed_fft(x, smesh),
-              lambda x=x, cd=X.dtype: torch.fft.fft(x.to(cd)))
+              lambda x=x, cd=X.dtype: torch.fft.fft(x.to(cd)), reps=3)
         if dname == "float64":
             yv = torch.sin(2 * math.pi * torch.arange(n, device=dev, dtype=torch.float64) / 64) \
                 + 0.2 * x
@@ -124,51 +125,12 @@ def main():
             cs.check(d_acf <= cs.PAR_F64_ACF, f"distributed_acf f64: {d_acf:.2e}")
             out["acf_f64_abs"] = d_acf
 
-    # config 7's likelihood through K1 on every rank and its carry
-    term = BrownianTerm(0.01, 20.0, 10.0, 0.3)
-    for n, dtype in ((100_000, torch.float64), (1_000_000, torch.float32)):
-        t7, y7 = cs.c7_series(np.random.default_rng(0), n)
-        tt, yy = cuda(t7).to(dtype), cuda(y7).to(dtype)
-        diag = torch.full_like(tt, 0.01)
-        with torch.no_grad():
-            ll = float(pscan.log_likelihood_sharded(term, tt, diag, yy, smesh))
-            stages = float(cs.in_turn_ll(term, tt, diag, yy, d)[0])
-            ref = float(log_likelihood(term, tt.double(), diag.double(), yy.double()))
-        rel, rel64 = abs(ll - stages) / abs(stages), abs(ll - ref) / abs(ref)
-        limit = cs.F64_LL_REL if dtype == torch.float64 else cs.F32_LL_REL_LONG[n]
-        cs.check(rel <= 1e-12 and rel64 <= limit,
-                 f"log_likelihood_sharded N={n}: {rel:.2e} from the stages, {rel64:.2e} from "
-                 f"the f64 scan (limit {limit})")
-        out[f"ll_N{n}"] = {"rel_vs_stages": rel, "rel_vs_f64_scan": rel64}
-        with torch.no_grad():
-            timed(f"log_likelihood_sharded_N{n}",
-                  lambda: pscan.log_likelihood_sharded(term, tt, diag, yy, smesh),
-                  lambda: log_likelihood_blocked(term, tt, diag, yy,
-                                                 n_blocks=pscan._shard_blocks(n)), reps=1)
-
-    # the walker-sharded sampler: JAX's moment test over the ranks
-    wmesh = default_mesh(("walkers",))
-    mu = torch.tensor([1.0, -2.0], device=dev)
-    sd = torch.tensor([0.5, 2.0], device=dev)
-    x0 = torch.randn(64, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-    chain, _, acc = mcmc.run_ensemble_sharded(
-        lambda x: -0.5 * torch.sum(((x - mu) / sd) ** 2, dim=-1), x0, 1, 1500, wmesh)
-    samples = chain.full_tensor()[500:].reshape(-1, 2).double()
-    m_err = float((samples.mean(0) - mu.double()).abs().max())
-    s_rel = float(((samples.std(0) - sd.double()).abs() / sd.double()).max())
-    cs.check(0.1 < acc < 0.95 and m_err <= 0.15 and s_rel <= 0.15,
-             f"run_ensemble_sharded moments: acceptance {acc}, mean {m_err}, std {s_rel}")
+    # the checks the one-card smoke makes, over this run's ranks
+    out["config7"] = cs.sharded_ll_points(smesh, cuda, tally, timed)
+    acc, m_err, s_rel = cs.sharded_moments(default_mesh(("walkers",)), dev)
     out["sampler"] = {"acceptance": acc, "mean_abs": m_err, "std_rel": s_rel}
-
-    # the sharded modeler on SpottedStar (N = 2148) against its scan
-    t5, y5, dy5 = pdata.SpottedStar()
-    sig = TSeries(cuda(t5), cuda(y5))
-    u = np.full(6, 50.0)
-    nll = BrownianGP(sig, err=cuda(dy5), solver="sharded", mesh=smesh).nll(u)
-    nll_scan = BrownianGP(sig, err=cuda(dy5)).nll(u)
-    cs.check(abs(nll - nll_scan) <= 1e-10 * abs(nll_scan),
-             f"BrownianGP(solver='sharded') over the ranks: {nll} vs scan {nll_scan}")
-    out["modeler_nll_rel"] = abs(nll - nll_scan) / abs(nll_scan)
+    out["modeler_nll_rel"], out["modeler_grad_rel"] = cs.sharded_modeler(smesh, cuda, tally)
+    out["launches"] = tally
 
     os.environ.setdefault("LOCAL_WORLD_SIZE", str(d))
     mh = multihost_mesh(device=None)
@@ -180,7 +142,7 @@ def main():
     if rank == 0:
         for name, v in out["ms"].items():
             print(f"{d} ranks {name}: sharded {v['sharded']:.4f} ms, one card "
-                  f"{v['one_card']:.4f} ms  ({card})")
+                  f"{v['unsharded']:.4f} ms  ({card})")
         print(json.dumps({"multi": out}))
     dist.destroy_process_group()
     return 0

@@ -378,17 +378,17 @@ def _shard_blocks(nl):
     return max(1, min(nl, math.isqrt(2 * nl)))
 
 
-def _shard_first(coeffs, dt, diag, y, batch, d, idx):
-    """Stage 1 of rank ``idx`` of ``d``: its contiguous stretch composed by
-    K1 from the identity (its first ``dt`` the step from the sample before
-    it; only rank 0 starts from the stationary prior). Returns (rank 0's
-    log-likelihood [batch], None elsewhere; the packed block summary [rows,
-    S], K1's outgoing carry)."""
+def _shard_pass(coeffs, dt, diag, y, batch, d, idx, carry):
+    """K1 over rank ``idx``'s contiguous stretch of ``d`` (its first ``dt``
+    the step from the sample before it; only rank 0 with no carry starts
+    from the stationary prior), from ``carry`` or, when it is None, the
+    identity. Returns (the stretch's share of the log-likelihood [batch];
+    the packed summary [rows, S] of K1's outgoing carry)."""
     nl = dt.shape[0] // d
     lo, hi = idx * nl, (idx + 1) * nl
-    ll, carry = _k1(coeffs, dt[lo:hi], diag[..., lo:hi], y[..., lo:hi], batch,
-                    _shard_blocks(nl), idx == 0, None)
-    return (ll if idx == 0 else None), pack_carry(carry)
+    ll, out = _k1(coeffs, dt[lo:hi], diag[..., lo:hi], y[..., lo:hi], batch,
+                  _shard_blocks(nl), idx == 0 and carry is None, carry)
+    return ll, pack_carry(out)
 
 
 def _states(coeffs):
@@ -406,27 +406,18 @@ def _shard_carry(summaries, idx, r):
     return run
 
 
-def _shard_second(coeffs, dt, diag, y, batch, d, idx, carry):
-    """Stage 2 of rank ``idx`` > 0: K1 over its stretch again, from its
-    exclusive carry. Returns its share of the log-likelihood [batch]."""
-    nl = dt.shape[0] // d
-    lo, hi = idx * nl, (idx + 1) * nl
-    ll, _ = _k1(coeffs, dt[lo:hi], diag[..., lo:hi], y[..., lo:hi], batch, _shard_blocks(nl),
-                False, carry)
-    return ll
-
-
 def log_likelihood_sharded(term, t, diag, resid, mesh, axis="seq"):
     """GP log-likelihood [...] with the TIME axis sharded over a mesh axis.
 
     The multi-rank extension of :func:`log_likelihood_blocked`: each of the
     D ranks composes its contiguous N/D stretch with K1
-    (:func:`_shard_first`), one ``all_gather`` shares the D block summaries
+    (:func:`_shard_pass`), one ``all_gather`` shares the D block summaries
     (O(D R^2) values a row, independent of N), each rank composes those of
     the ranks before it into its exclusive carry (:func:`_shard_carry`) and
-    runs K1 again from it (:func:`_shard_second`; rank 0 needs no second
-    call), and one ``all_reduce`` adds the innovation sums. Every rank
-    holds the whole series and returns the same value. N must divide by D.
+    runs K1 again from it (:func:`_shard_pass` with that carry; rank 0
+    needs no second call), and one ``all_reduce`` adds the innovation
+    sums. Every rank holds the whole series and returns the same value. N
+    must divide by D.
 
     Matches ``solver.log_likelihood`` for SHO-family terms. Its gradient is
     the sequential solver's (see the module): every rank holds the whole
@@ -439,12 +430,12 @@ def log_likelihood_sharded(term, t, diag, resid, mesh, axis="seq"):
         raise ValueError(f"n={n} must be divisible by mesh axis size {d}")
     with torch.no_grad(), full_float32():
         dt = torch.cat([tt.new_zeros(1), torch.diff(tt)])
-        ll, summary = _shard_first(coeffs, dt, dd, y, batch, d, idx)
+        ll, summary = _shard_pass(coeffs, dt, dd, y, batch, d, idx, None)
         parts = [torch.empty_like(summary) for _ in range(d)]
         dist.all_gather(parts, summary.contiguous(), group=group)
         if idx:
-            ll = _shard_second(coeffs, dt, dd, y, batch, d, idx,
-                               _shard_carry(torch.stack(parts), idx, _states(coeffs)))
+            ll, _ = _shard_pass(coeffs, dt, dd, y, batch, d, idx,
+                                _shard_carry(torch.stack(parts), idx, _states(coeffs)))
         ll = ll.contiguous()
         dist.all_reduce(ll, group=group)
     return _with_scan_gradient(ll, term, t, diag, resid, coeffs, (tt, dd, y))
