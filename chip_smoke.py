@@ -2783,23 +2783,18 @@ def c5_inputs(dev, dtype, n_walkers=C5_WALKERS):
     return [x.contiguous() for x in (A, U, V, P, yb)], (w, tt, yy, diag)
 
 
-def gp_slice(dev, card, cuda):
-    """Phases 27-30: the celerite kernels against their plain versions,
-    configs 5, 7 and 8, and the GP modelers on SpottedStar. Prints the
-    ``{"gp": ...}`` line and returns the three kernels' JSON records."""
+def celerite_kernels(dev, card, cuda, clock_hz):
+    """Phase 27: G1, G2 and G3 against their plain versions bit for bit
+    (config 5 in both dtypes, its first 8 walkers, edge draws), the launch
+    geometry the library reports, and the kernels' times beside their plain
+    versions, chain bounds and library calls. Returns the three kernels'
+    JSON records, keyed by name."""
     import torch
 
-    from periodicity_tpu_torch import TSeries
-    from periodicity_tpu_torch import data as pdata
-    from periodicity_tpu_torch.gp import BrownianGP, HarmonicGP, QuasiPeriodicGP
-    from periodicity_tpu_torch.models.gp import mcmc
-    from periodicity_tpu_torch.models.gp.solver import _rows, celerite_matrices, log_likelihood
+    from periodicity_tpu_torch.models.gp.solver import _rows, celerite_matrices
     from periodicity_tpu_torch.models.gp.terms import BrownianTerm, RotationTerm, SHOTerm
     from periodicity_tpu_torch.ops import celerite as C
 
-    clock_hz = sm_clock_hz()
-    start = time.perf_counter()
-    out = {"card": card, "sm_clock_max_mhz": clock_hz / 1e6}
     recs = {
         name: {"name": name, "route": "cuda", "source": "periodicity_tpu_torch/csrc/celerite.cu",
                "replaces": rep, "held": "bit-equal", "max_abs_err": 0.0}
@@ -2807,14 +2802,25 @@ def gp_slice(dev, card, cuda):
                           ("celerite_adjoint", "periodicity_tpu/models/gp/solver.py:161"),
                           ("celerite_solve", "periodicity_tpu/models/gp/solver.py:106"))
     }
+    for name in ("celerite_forward", "celerite_solve"):
+        recs[name]["redesigned"] = 12
+    g5, g3n = C.kernel_geometry(b=C5_WALKERS, r=6), C.kernel_geometry(k=2148)
+    recs["celerite_forward"]["geometry_config5"] = g5
+    recs["celerite_solve"]["geometry_k2148"] = g3n
+    print(f"phase 27 launch geometry: G1 at config 5 {g5}; G3 at K = 2148 {g3n}")
 
     def both_forward(A, U, V, P, y, label):
-        got = C.celerite_forward(A, U, V, P, y, save=True)
-        want = C.celerite_forward_plain(A, U, V, P, y, save=True)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("D", "W", "z", "S_saved", "f_saved"), got, want):
-            if b is not None:
-                check(bit_equal(a, b), f"G1 vs plain, {name} not bit-equal ({label})")
+        # every output, with and without y, the saved state and W
+        for yy, save, want_w in ((None, False, True), (y, False, False), (y, True, True)):
+            got = C.celerite_forward(A, U, V, P, yy, save=save, want_w=want_w)
+            want = C.celerite_forward_plain(A, U, V, P, yy, save=save)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("D", "W", "z", "S_saved", "f_saved"), got, want):
+                check((a is None) == (b is None or (name == "W" and not want_w)),
+                      f"G1: {name} given as the plain version gives it ({label})")
+                if a is not None:
+                    check(bit_equal(a, b), f"G1 vs plain, {name} not bit-equal ({label}, "
+                          f"y {yy is not None}, save {save}, want_w {want_w})")
         return got
 
     def both_adjoint(U, P, fwd, label):
@@ -2847,11 +2853,14 @@ def gp_slice(dev, card, cuda):
         fwd = both_forward(A, U, V, P, y, f"config 5, {dtype}")
         adj = both_adjoint(U, P, fwd, f"config 5, {dtype}")
         D, W = fwd[0], fwd[1]
-        for k in (1, 65, n):
+        for k in (1, 31, 32, 33, 65, n):
             both_solve(U[0], P[0], D[0], W[0],
                        torch.from_numpy(rng.standard_normal((n, k))).to(dev, dtype),
                        f"config 5 row 0, K = {k}, {dtype}")
         timed[pre] = (A, U, V, P, y, adj, _)
+    # mcmc(16)'s half-ensemble: 8 walkers, two blocks of four
+    (A8, U8, V8, P8, y8), rows8 = c5_inputs(dev, torch.float64, 8)
+    both_forward(A8, U8, V8, P8, y8, "config 5's first 8 walkers, float64")
     edges = []
     # a live SHO (R = 2); a masked RotationTerm over 3 rows (R = 8); N = 2; a
     # row whose D goes non-positive (NaN for NaN)
@@ -2882,8 +2891,34 @@ def gp_slice(dev, card, cuda):
         check(bool((fwd[0][0] <= 0).any()), "the edited row's D goes non-positive")
         both_adjoint(U.contiguous(), P.contiguous(), fwd, f"non-positive D, {dtype}")
     edges = list(dict.fromkeys(edges)) + ["a row whose D goes non-positive"]
-    print(f"phase 27 G1/G2/G3 bit-equal to plain at config 5 (B={C5_WALKERS}, N={n}, R=6, f32 "
-          f"and f64; G3 at K = 1, 65, {n}) and edge draws ({'; '.join(edges)})")
+    print(f"phase 27 G1/G2/G3 bit-equal to plain at config 5 (B={C5_WALKERS} and 8, N={n}, R=6, "
+          f"f32 and f64; G1 with and without y, the saved state and W; G3 at K = 1, 31, 32, "
+          f"33, 65, {n}) and edge draws ({'; '.join(edges)})")
+
+    def g1_library(rec, pre, w, tt, diag, y, g1):
+        """G1's library yardstick: one batched dense Cholesky of the walkers'
+        K and the triangular solve for z (D = diag(L)^2 and L^-1 y, scaled),
+        held against G1 through the log-likelihood. Records its time, the
+        rows it could not factor and the largest relative difference."""
+        termb = BrownianTerm(0.01 * w[:, 0], 20.0 * w[:, 1], 10.0 * w[:, 2], 0.3 * w[:, 3])
+        Kb = termb.get_value(tt[:, None] - tt[None, :]) + torch.diag(diag)
+        yb = y[:, :, None]
+
+        def lib1():
+            Lb, info = torch.linalg.cholesky_ex(Kb)
+            return Lb, info, torch.linalg.solve_triangular(Lb, yb, upper=False)
+
+        Lb, info, zl = lib1()
+        dl = torch.diagonal(Lb, dim1=-2, dim2=-1)
+        ll_lib = -(zl[..., 0].square().sum(-1) + 2 * torch.log(dl).sum(-1))
+        Dk, _, zk, _, _ = g1()
+        ll_g1 = -(torch.sum(zk * zk / Dk, dim=-1) + torch.sum(torch.log(Dk), dim=-1))
+        ok = info == 0
+        rel = float(((ll_lib - ll_g1).abs() / ll_g1.abs())[ok].max())
+        rec[f"{pre}library_ms"] = event_ms(lib1, 3)
+        rec[f"{pre}library_failed_rows"] = int((~ok).sum())
+        rec[f"{pre}library_vs_kernel_rel"] = rel
+        return rel
 
     # times at config 5's shape: events over back-to-back calls, the
     # profiler's device time per call, the plain version's wall time (one
@@ -2913,28 +2948,7 @@ def gp_slice(dev, card, cuda):
         g1r[f"{pre}device_ms"] = device_us(g1, "celerite_forward_kernel", 5) / 1e3
         g1r[f"{pre}save_ms"] = event_ms(g1s, 10)
         g1r[f"{pre}plain_ms"] = plain_wall_ms(lambda: C.celerite_forward_plain(A, U, V, P, y))
-        # G1's library yardstick: one batched dense Cholesky of the 64
-        # walkers' K and the triangular solve for z (D = diag(L)^2 and
-        # L^-1 y, scaled), held against G1 through the log-likelihood
-        termb = BrownianTerm(0.01 * w0[:, 0], 20.0 * w0[:, 1], 10.0 * w0[:, 2], 0.3 * w0[:, 3])
-        Kb = termb.get_value(tt[:, None] - tt[None, :]) + torch.diag(diag)
-        yb = y[:, :, None]
-
-        def lib1(Kb=Kb, yb=yb):
-            Lb, info = torch.linalg.cholesky_ex(Kb)
-            return Lb, info, torch.linalg.solve_triangular(Lb, yb, upper=False)
-
-        Lb, info, zl = lib1()
-        dl = torch.diagonal(Lb, dim1=-2, dim2=-1)
-        ll_lib = -(zl[..., 0].square().sum(-1) + 2 * torch.log(dl).sum(-1))
-        Dk, _, zk, _, _ = g1()
-        ll_g1 = -(torch.sum(zk * zk / Dk, dim=-1) + torch.sum(torch.log(Dk), dim=-1))
-        ok = info == 0
-        rel1 = float(((ll_lib - ll_g1).abs() / ll_g1.abs())[ok].max())
-        g1r[f"{pre}library_ms"] = event_ms(lib1, 3)
-        g1r[f"{pre}library_failed_rows"] = int((~ok).sum())
-        g1r[f"{pre}library_vs_kernel_rel"] = rel1
-        del Kb, Lb, zl, termb
+        rel1 = g1_library(g1r, pre, w0, tt, diag, y, g1)
         g1r[f"{pre}bound_ms"], g1r[f"{pre}bound_by"] = chain_bound(
             elem * b * (n + 2 * n * r + (n - 1) * r + n + 2 * n), n * g1_chain_ops(r), name,
             clock_hz)
@@ -2955,6 +2969,20 @@ def gp_slice(dev, card, cuda):
         g3r[f"{pre}library_vs_kernel_rel"] = rel3
         g3r[f"{pre}bound_ms"], g3r[f"{pre}bound_by"] = chain_bound(
             elem * (3 * n * r + n + 2 * n * n), n * g3_chain_ops(r), name, clock_hz)
+        # G3 at K = 1 (predict's shape): one lane walks both sweeps
+        y1 = Y[:, :1].contiguous()
+        g31 = lambda: C.celerite_solve(U[0], P[0], D[0], W[0], y1)  # noqa: E731
+        g3r[f"{pre}k1_ms"] = event_ms(g31, 20)
+        g3r[f"{pre}k1_device_ms"] = device_us(g31, "celerite_solve_kernel", 5) / 1e3
+        g3r[f"{pre}k1_plain_ms"] = plain_wall_ms(
+            lambda: C.celerite_solve_plain(U[0], P[0], D[0], W[0], y1))
+        lib31 = lambda: torch.cholesky_solve(y1, Lc)  # noqa: E731
+        x1, xl1 = g31(), lib31()
+        torch.cuda.synchronize()
+        g3r[f"{pre}k1_library_ms"] = event_ms(lib31, 20)
+        g3r[f"{pre}k1_library_vs_kernel_rel"] = float((x1 - xl1).abs().max() / xl1.abs().max())
+        g3r[f"{pre}k1_bound_ms"], g3r[f"{pre}k1_bound_by"] = chain_bound(
+            elem * (3 * n * r + n + 2 * n), n * g3_chain_ops(r), name, clock_hz)
         print(f"phase 27 {name}, config 5 (B={b}, N={n}, R={r}): G1 {g1r[pre + 'ms']:.4f} ms "
               f"(device {g1r[pre + 'device_ms']:.4f}, saving state {g1r[pre + 'save_ms']:.4f}, "
               f"plain {g1r[pre + 'plain_ms']:.1f}, bound {g1r[pre + 'bound_ms']:.4f} "
@@ -2966,11 +2994,54 @@ def gp_slice(dev, card, cuda):
               f"{g2r[pre + 'bound_ms']:.4f}); G3 K={n} {g3r[pre + 'ms']:.4f} ms (device "
               f"{g3r[pre + 'device_ms']:.4f}, plain {g3r[pre + 'plain_ms']:.1f}, dense "
               f"cholesky_solve {g3r[pre + 'library_ms']:.4f} ms, rel diff {rel3:.1e}, bound "
-              f"{g3r[pre + 'bound_ms']:.4f})  ({card})")
+              f"{g3r[pre + 'bound_ms']:.4f}); G3 K=1 {g3r[pre + 'k1_ms']:.4f} ms (device "
+              f"{g3r[pre + 'k1_device_ms']:.4f}, plain {g3r[pre + 'k1_plain_ms']:.1f}, dense "
+              f"cholesky_solve {g3r[pre + 'k1_library_ms']:.4f} ms, rel diff "
+              f"{g3r[pre + 'k1_library_vs_kernel_rel']:.1e}, bound "
+              f"{g3r[pre + 'k1_bound_ms']:.4f})  ({card})")
+    # G1 at mcmc(16)'s half-ensemble of 8 walkers (f64): 2 blocks
+    g18 = lambda: C.celerite_forward(A8, U8, V8, P8, y8, want_w=False)  # noqa: E731
+    g1r = recs["celerite_forward"]
+    b8, n8, r8 = U8.shape
+    g1r["b8_ms"] = event_ms(g18, 20)
+    g1r["b8_device_ms"] = device_us(g18, "celerite_forward_kernel", 5) / 1e3
+    g1r["b8_plain_ms"] = plain_wall_ms(lambda: C.celerite_forward_plain(A8, U8, V8, P8, y8))
+    w8, tt8, _, diag8 = rows8
+    g1_library(g1r, "b8_", w8, tt8, diag8, y8, g18)
+    g1r["b8_bound_ms"], g1r["b8_bound_by"] = chain_bound(
+        A8.element_size() * b8 * (n8 + 2 * n8 * r8 + (n8 - 1) * r8 + n8 + 2 * n8),
+        n8 * g1_chain_ops(r8), "float64", clock_hz)
+    print(f"phase 27 float64, G1 at 8 walkers (mcmc(16)'s half-ensemble, "
+          f"{C.kernel_geometry(b=b8, r=r8)['blocks']} blocks): {g1r['b8_ms']:.4f} ms (device "
+          f"{g1r['b8_device_ms']:.4f}, plain {g1r['b8_plain_ms']:.1f}, batched dense "
+          f"cholesky_ex + solve_triangular {g1r['b8_library_ms']:.4f} ms, ll rel diff "
+          f"{g1r['b8_library_vs_kernel_rel']:.1e}, bound {g1r['b8_bound_ms']:.4f} "
+          f"{g1r['b8_bound_by']})  ({card})")
     for rec in recs.values():
         rec["shape"] = ("config 5: 64 walkers x N = 2148, the masked BrownianTerm (R = 6), "
                         "float64 unprefixed and float32 under f32_; G3 one row with K = N "
-                        "right-hand sides")
+                        "right-hand sides (k1_: K = 1); G1 b8_: 8 walkers, float64")
+    return recs
+
+
+def gp_slice(dev, card, cuda):
+    """Phases 27-30: the celerite kernels against their plain versions,
+    configs 5, 7 and 8, and the GP modelers on SpottedStar. Prints the
+    ``{"gp": ...}`` line and returns the three kernels' JSON records."""
+    import torch
+
+    from periodicity_tpu_torch import TSeries
+    from periodicity_tpu_torch import data as pdata
+    from periodicity_tpu_torch.gp import BrownianGP, HarmonicGP, QuasiPeriodicGP
+    from periodicity_tpu_torch.models.gp import mcmc
+    from periodicity_tpu_torch.models.gp.solver import log_likelihood
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm
+    from periodicity_tpu_torch.ops import celerite as C
+
+    clock_hz = sm_clock_hz()
+    start = time.perf_counter()
+    out = {"card": card, "sm_clock_max_mhz": clock_hz / 1e6}
+    recs = celerite_kernels(dev, card, cuda, clock_hz)
     t27 = time.perf_counter()
 
     # phase 28: config 5, k = 10 chained batched evaluations, each feeding

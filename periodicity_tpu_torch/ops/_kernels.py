@@ -75,6 +75,9 @@ ENTRY_POINTS = {
     # U, P, D, W, Y, n, r, k, X, stream
     "celerite_solve_f32": [_P] * 5 + [_I] * 3 + [_P] * 2,
     "celerite_solve_f64": [_P] * 5 + [_I] * 3 + [_P] * 2,
+    # b, r, int[5] out; k, int[4] out: the launch geometry the kernels use
+    "celerite_forward_geometry": [_I] * 2 + [_P],
+    "celerite_solve_geometry": [_I] + [_P],
     # A, Q, H, diag, y, carry_in, b, n, r, n_blocks, summ, excl, mu, s, carry_out, stream
     "kalman_blocked_f32": [_P] * 6 + [_I] * 4 + [_P] * 6,
     "kalman_blocked_f64": [_P] * 6 + [_I] * 4 + [_P] * 6,

@@ -7,10 +7,12 @@ The JAX package runs each as a ``lax.scan`` over the N samples
 fuses into one dispatch and differentiates with ``jax.grad``. Eager PyTorch
 would pay a handful of launches for every step of every sweep, so on a CUDA
 tensor each recursion is one launch of a hand-written kernel
-(``csrc/celerite.cu``, one thread a row or a column, the state in
-registers); on a CPU tensor it is its plain version here. Both round every
-product, sum, difference and quotient on its own, in the same order, so
-they agree bit for bit.
+(``csrc/celerite.cu``): G1 walks a walker on a group of lanes, lane i
+owning row i of the state; G2 walks a walker on one thread; G3 walks a
+column of the right-hand sides on one lane, the coefficients staged in
+shared memory (:func:`kernel_geometry`). On a CPU tensor each is its
+plain version here. Both round every product, sum, difference and
+quotient on its own, in the same order, so they agree bit for bit.
 
 The kernel matrix is ``K = diag(A) + tril(U W^T) + triu(W U^T)`` with the
 semiseparable factor ``K = L diag(D) L^T``, ``L = I + tril(U W^T)``. Rows
@@ -32,10 +34,12 @@ versions step through numpy arrays on the host, as ``sosfilt_plain`` does.
 ``celerite_solve.launches`` count the kernel launches.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
-from ._kernels import MAX_R, _back, _check, _entry, _host, _launch, _on_cpu
+from ._kernels import MAX_R, _back, _check, _entry, _host, _launch, _on_cpu, load
 
 __all__ = [
     "MAX_R",
@@ -214,6 +218,29 @@ def _check_r(r):
                          f"this wide runs only on CPU tensors")
 
 
+def kernel_geometry(b=None, r=None, k=None):
+    """The launch geometry ``csrc/celerite.cu`` uses, read from the built
+    library (built if it is missing). For ``b`` walkers of ``r`` slots,
+    G1's: ``lanes`` a walker (the next power of two >= R, so a group never
+    straddles a warp), ``walkers`` a block (one warp walks them, a second
+    stages their tiles), ``blocks``, ``threads`` a block and ``step_tile``,
+    the steps staged at a time. For ``k`` right-hand sides, G3's:
+    ``columns`` a block (a lane a column), ``blocks``, ``threads`` a block
+    (a warp walks the columns' recursions, four stage its tiles and divide
+    by D) and ``row_tile``, the rows staged at a time."""
+    if k is not None:
+        out = (ctypes.c_int * 4)()
+        keys = ("columns", "blocks", "threads", "row_tile")
+        err = load().celerite_solve_geometry(k, out)
+    else:
+        out = (ctypes.c_int * 5)()
+        keys = ("lanes", "walkers", "blocks", "threads", "step_tile")
+        err = load().celerite_forward_geometry(b, r, out)
+    if err != 0:
+        raise ValueError(f"no celerite launch for b={b}, r={r}, k={k}")
+    return dict(zip(keys, out))
+
+
 def celerite_forward(A, U, V, P, y=None, save=False, want_w=True):
     """G1: the celerite factor, fused with the forward substitution of y.
 
@@ -221,7 +248,8 @@ def celerite_forward(A, U, V, P, y=None, save=False, want_w=True):
     dtype. Returns (D, W, z, S_saved, f_saved) as
     :func:`celerite_forward_plain`; W is None on the card unless
     ``want_w`` or ``save``. On a CUDA tensor one kernel launch on the
-    current stream (no synchronise); on a CPU tensor the plain version.
+    current stream (no synchronise), a group of lanes a walker
+    (:func:`kernel_geometry`); on a CPU tensor the plain version.
     """
     if _on_cpu(U):
         return celerite_forward_plain(A, U, V, P, y, save)
@@ -283,8 +311,10 @@ celerite_adjoint.launches = 0
 
 def celerite_solve(U, P, D, W, Y):
     """G3: x = K^{-1} Y for one system factored by G1. U, W [N, R], P
-    [N-1, R], D [N], Y [N, K] (or [N]). On a CUDA tensor one kernel launch
-    (a thread a column); on a CPU tensor the plain version. Not
+    [N-1, R], D [N], Y [N, K] (or [N]). On a CUDA tensor one kernel launch,
+    a lane a column and 32 columns a block, the coefficients every column
+    shares and each lane's column staged in shared memory ahead of the
+    walk (:func:`kernel_geometry`); on a CPU tensor the plain version. Not
     differentiable on the card."""
     squeeze = Y.dim() == 1
     if squeeze:

@@ -943,29 +943,65 @@ def _bits(a, b):
         torch.nan_to_num(a, 0.0), torch.nan_to_num(b, 0.0))
 
 
+# every batch size that cuts a lane group or a block of walkers, every
+# length that cuts a tile of G3's rows (32) or G1's steps (8, 16), and
+# config 5's length
+CELERITE_DRAWS = [(1, 2148), (3, 1), (4, 2), (5, 31), (33, 32), (64, 33), (65, 2148)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("r", [2, 4, 6, 8])
-@pytest.mark.parametrize("b,n", [(3, 1), (2, 2), (33, 257), (8, 2148)])
+@pytest.mark.parametrize("r", range(1, 9))
+@pytest.mark.parametrize("b,n", CELERITE_DRAWS)
 def test_celerite_kernels_match_plain_bit_for_bit(cuda, dtype, r, b, n):
     from periodicity_tpu_torch.ops import celerite as C
 
     A, U, V, P, y = _celerite_draw(b, n, r, dtype, cuda, r * 1000 + n)
     if n > 5:
         A[0, 4] = -1.0  # a row whose D goes non-positive
-    got = C.celerite_forward(A, U, V, P, y, save=True)
-    want = C.celerite_forward_plain(A, U, V, P, y, save=True)
-    assert all(_bits(a, w) for a, w in zip(got, want))
-    D, W, z, S_saved, f_saved = got
+    # G1 with and without y, the saved state and W
+    for yy, save, want_w in ((y, True, True), (None, False, True), (y, False, False),
+                             (None, True, False)):
+        got = C.celerite_forward(A, U, V, P, yy, save=save, want_w=want_w)
+        want = C.celerite_forward_plain(A, U, V, P, yy, save=save)
+        for name, a, w in zip(("D", "W", "z", "S_saved", "f_saved"), got, want):
+            if name == "W" and not (want_w or save):
+                assert a is None
+            else:
+                assert (a is None) == (w is None) and (a is None or _bits(a, w)), name
+    D, W, z, S_saved, f_saved = C.celerite_forward(A, U, V, P, y, save=True)
     rng = np.random.default_rng(n)
     dD, dz = (torch.from_numpy(rng.standard_normal((b, n))).to(cuda, dtype) for _ in range(2))
     for a, w in zip(C.celerite_adjoint(U, P, D, W, z, S_saved, f_saved, dD, dz),
                     C.celerite_adjoint_plain(U, P, D, W, z, S_saved, f_saved, dD, dz)):
         assert _bits(a, w)
     row = b - 1
-    for k in (1, 65):
+    for k in (1, 31, 32, 33, 65) + ((2148,) if n == 2148 else ()):
         Y = torch.from_numpy(rng.standard_normal((n, k))).to(cuda, dtype)
         assert _bits(C.celerite_solve(U[row], P[row], D[row], W[row], Y),
-                     C.celerite_solve_plain(U[row], P[row], D[row], W[row], Y))
+                     C.celerite_solve_plain(U[row], P[row], D[row], W[row], Y)), k
+
+
+def test_celerite_launch_geometry(cuda):
+    from periodicity_tpu_torch.ops import celerite as C
+
+    for r in range(1, C.MAX_R + 1):
+        for b in (1, 3, 4, 5, 8, 33, 64, 65):
+            g = C.kernel_geometry(b=b, r=r)
+            # a group is a power of two >= R lanes inside a warp; every
+            # walker has a block and no block is empty
+            lanes, walkers, blocks = g["lanes"], g["walkers"], g["blocks"]
+            assert lanes & (lanes - 1) == 0 and r <= lanes < 2 * r or lanes == r == 1
+            assert lanes * walkers == 32 and (blocks - 1) * walkers < b <= blocks * walkers
+    for k in (1, 3, 31, 32, 33, 64, 65, 2148):
+        g = C.kernel_geometry(k=k)
+        assert 32 <= g["columns"] <= 64
+        assert (g["blocks"] - 1) * g["columns"] < k <= g["blocks"] * g["columns"]
+    # config 5's 64 walkers (R = 6) cover at least 16 SMs, loocv's 2148
+    # right-hand sides at least 34
+    assert C.kernel_geometry(b=64, r=6)["blocks"] >= 16
+    assert C.kernel_geometry(k=2148)["blocks"] >= 34
+    with pytest.raises(ValueError):
+        C.kernel_geometry(b=1, r=C.MAX_R + 1)
 
 
 def test_one_celerite_launch_per_call_and_factor_without_rhs(cuda):
