@@ -126,9 +126,13 @@ kernels, and checks every phase:
    their plain versions on the card, bit for bit: config 5's shape (64
    walkers, N = 2148, the masked BrownianTerm, R = 6) in float32 and
    float64, G3 at K = 1, 65 and 2148, and edge draws (a live SHO, R = 2; a
-   masked RotationTerm, R = 8; N = 2; a row whose D goes non-positive);
+   masked RotationTerm, R = 8; N = 2; a row whose D goes non-positive),
+   G2 also at 8 walkers in float64 and config 13's 4 in float32, its
+   outputs held to the bit pattern (signed zeros too), and its local
+   memory held at 0 in every instantiation (R = 1..8, both dtypes);
    events and profiler times, the plain versions' wall times, the chain
-   bounds, and one dense ``torch.cholesky_solve`` of G3's system;
+   bounds, one dense ``torch.cholesky_solve`` of G3's system, and for G2
+   autograd's backward through the batched dense Cholesky;
 28. config 5 (k = 10 chained batched evaluations, float32 and float64:
    evals/s, launches an evaluation, busy share, peak memory) and config 7's
    scan points (N = 1e4, 1e5, float32);
@@ -2765,6 +2769,18 @@ def bit_equal(a, b):
             and torch.equal(torch.nan_to_num(a, 0.0), torch.nan_to_num(b, 0.0)))
 
 
+def same_bits(a, b):
+    """a and b hold the same bit patterns, signed zeros included; NaN where
+    the other is NaN."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.view(view)[~nan], b.view(view)[~nan]))
+
+
 def c5_inputs(dev, dtype, n_walkers=C5_WALKERS):
     """Config 5's (A, U, V, P, y) on the card: the walkers' BrownianTerm in
     its masked form (R = 6), SpottedStar's times and mean-subtracted
@@ -2785,10 +2801,11 @@ def c5_inputs(dev, dtype, n_walkers=C5_WALKERS):
 
 def celerite_kernels(dev, card, cuda, clock_hz):
     """Phase 27: G1, G2 and G3 against their plain versions bit for bit
-    (config 5 in both dtypes, its first 8 walkers, edge draws), the launch
-    geometry the library reports, and the kernels' times beside their plain
-    versions, chain bounds and library calls. Returns the three kernels'
-    JSON records, keyed by name."""
+    (config 5 in both dtypes, its first 8 walkers, config 13's 4 for G2,
+    edge draws), the launch geometry the library reports, G2's local memory,
+    and the kernels' times beside their plain versions, chain bounds and
+    library calls. Returns the three kernels' JSON records, keyed by
+    name."""
     import torch
 
     from periodicity_tpu_torch.models.gp.solver import _rows, celerite_matrices
@@ -2804,10 +2821,21 @@ def celerite_kernels(dev, card, cuda, clock_hz):
     }
     for name in ("celerite_forward", "celerite_solve"):
         recs[name]["redesigned"] = 12
+    recs["celerite_adjoint"]["redesigned"] = 13
     g5, g3n = C.kernel_geometry(b=C5_WALKERS, r=6), C.kernel_geometry(k=2148)
+    g2g = C.kernel_geometry(b=C5_WALKERS, r=6, adjoint=True)
     recs["celerite_forward"]["geometry_config5"] = g5
+    recs["celerite_adjoint"]["geometry_config5"] = g2g
     recs["celerite_solve"]["geometry_k2148"] = g3n
-    print(f"phase 27 launch geometry: G1 at config 5 {g5}; G3 at K = 2148 {g3n}")
+    print(f"phase 27 launch geometry: G1 at config 5 {g5}; G2 at config 5 {g2g}; G3 at K = 2148 "
+          f"{g3n}")
+    # G2 keeps its rows in registers: no instantiation may use local memory
+    g2_attrs = {f"{'f64' if dt == torch.float64 else 'f32'}_r{r}": C.adjoint_attributes(r, dt)
+                for dt in (torch.float64, torch.float32) for r in range(1, C.MAX_R + 1)}
+    recs["celerite_adjoint"]["attributes"] = g2_attrs
+    print("phase 27 G2 instantiations (local bytes / registers / shared bytes): "
+          + ", ".join(f"{k} {a['local_bytes']}/{a['registers']}/{a['shared_bytes']}"
+                      for k, a in g2_attrs.items()))
 
     def both_forward(A, U, V, P, y, label):
         # every output, with and without y, the saved state and W
@@ -2831,7 +2859,7 @@ def celerite_kernels(dev, card, cuda, clock_hz):
         want = C.celerite_adjoint_plain(U, P, D, W, z, S_saved, f_saved, dD, dz)
         torch.cuda.synchronize()
         for name, a, b in zip(("dA", "dU", "dV", "dP", "dy"), got, want):
-            check(bit_equal(a, b), f"G2 vs plain, {name} not bit-equal ({label})")
+            check(same_bits(a, b), f"G2 vs plain, {name} not bit-equal ({label})")
         return (D, W, z, S_saved, f_saved, dD, dz)
 
     def both_solve(U, P, D, W, Y, label):
@@ -2858,9 +2886,14 @@ def celerite_kernels(dev, card, cuda, clock_hz):
                        torch.from_numpy(rng.standard_normal((n, k))).to(dev, dtype),
                        f"config 5 row 0, K = {k}, {dtype}")
         timed[pre] = (A, U, V, P, y, adj, _)
-    # mcmc(16)'s half-ensemble: 8 walkers, two blocks of four
+    # mcmc(16)'s half-ensemble: 8 walkers, two blocks of four; config 13's
+    # 4 chains in float32, one block
     (A8, U8, V8, P8, y8), rows8 = c5_inputs(dev, torch.float64, 8)
-    both_forward(A8, U8, V8, P8, y8, "config 5's first 8 walkers, float64")
+    fwd8 = both_forward(A8, U8, V8, P8, y8, "config 5's first 8 walkers, float64")
+    adj8 = both_adjoint(U8, P8, fwd8, "config 5's first 8 walkers, float64")
+    (A4, U4, V4, P4, y4), rows4 = c5_inputs(dev, torch.float32, 4)
+    fwd4 = both_forward(A4, U4, V4, P4, y4, "config 13's 4 walkers, float32")
+    adj4 = both_adjoint(U4, P4, fwd4, "config 13's 4 walkers, float32")
     edges = []
     # a live SHO (R = 2); a masked RotationTerm over 3 rows (R = 8); N = 2; a
     # row whose D goes non-positive (NaN for NaN)
@@ -2892,8 +2925,8 @@ def celerite_kernels(dev, card, cuda, clock_hz):
         both_adjoint(U.contiguous(), P.contiguous(), fwd, f"non-positive D, {dtype}")
     edges = list(dict.fromkeys(edges)) + ["a row whose D goes non-positive"]
     print(f"phase 27 G1/G2/G3 bit-equal to plain at config 5 (B={C5_WALKERS} and 8, N={n}, R=6, "
-          f"f32 and f64; G1 with and without y, the saved state and W; G3 at K = 1, 31, 32, "
-          f"33, 65, {n}) and edge draws ({'; '.join(edges)})")
+          f"f32 and f64; 4 walkers in f32; G1 with and without y, the saved state and W; G3 at "
+          f"K = 1, 31, 32, 33, 65, {n}) and edge draws ({'; '.join(edges)})")
 
     def g1_library(rec, pre, w, tt, diag, y, g1):
         """G1's library yardstick: one batched dense Cholesky of the walkers'
@@ -2920,6 +2953,68 @@ def celerite_kernels(dev, card, cuda, clock_hz):
         rec[f"{pre}library_vs_kernel_rel"] = rel
         return rel
 
+    def g2_library(rec, pre, w, tt, diag, y):
+        """G2's library yardstick: autograd's backward through G1's (the
+        batched cholesky_ex + solve_triangular log-likelihood of the walkers'
+        dense K), from K and y, timed alone on a kept graph. Both paths are
+        built from the walkers' term parameters and y, so their gradients
+        with respect to those are held against each other: the scan
+        likelihood's through G1 and G2, the dense one's through K. Records
+        the time and the largest relative difference of a walker's gradient
+        (rows the dense Cholesky factors)."""
+        from periodicity_tpu_torch.models.gp.solver import log_likelihood
+
+        def grads(dense):
+            # (d ll / d w, d ll / d y) and the rows the dense Cholesky factors
+            wg = w.detach().clone().requires_grad_(True)
+            yg = y.detach().clone().requires_grad_(True)
+            term = BrownianTerm(0.01 * wg[:, 0], 20.0 * wg[:, 1], 10.0 * wg[:, 2],
+                                0.3 * wg[:, 3])
+            if not dense:
+                return torch.autograd.grad(log_likelihood(term, tt, diag, yg).sum(), (wg, yg)), None
+            Kb = term.get_value(tt[:, None] - tt[None, :]) + torch.diag(diag)
+            Lb, info = torch.linalg.cholesky_ex(Kb)
+            zl = torch.linalg.solve_triangular(Lb, yg[:, :, None], upper=False)
+            dl = torch.diagonal(Lb, dim1=-2, dim2=-1)
+            ll = -0.5 * (zl[..., 0].square().sum(-1) + 2 * torch.log(dl).sum(-1))
+            total = torch.where(info == 0, ll, 0).sum()
+            back = lambda: torch.autograd.grad(total, (Kb, yg), retain_graph=True)  # noqa: E731
+            rec[f"{pre}library_ms"] = event_ms(back, 3)
+            return torch.autograd.grad(total, (wg, yg)), info == 0
+
+        (gw_l, gy_l), ok = grads(True)
+        (gw_s, gy_s), _ = grads(False)
+        rel = max(float(((a - b).abs().amax(-1) / b.abs().amax(-1))[ok].max())
+                  for a, b in ((gw_s, gw_l), (gy_s, gy_l))) if bool(ok.any()) else float("nan")
+        rec[f"{pre}library_grad_rel"] = rel
+        torch.cuda.empty_cache()
+        return rel
+
+    def g2_times(rec, pre, U, P, adj, rows, name):
+        """G2's events, device, plain and chain-bound times at U's shape,
+        and its library yardstick."""
+        D, W, z, S_saved, f_saved, dD, dz = adj
+        b, n, r = U.shape
+        kk = r * (r + 1) // 2
+        g2 = lambda: C.celerite_adjoint(U, P, D, W, z, S_saved, f_saved, dD, dz)  # noqa: E731
+        g2()  # untimed: after g2_library's empty_cache a first call allocates anew
+        torch.cuda.synchronize()
+        rec[f"{pre}ms"] = event_ms(g2, 10)
+        rec[f"{pre}device_ms"] = device_us(g2, "celerite_adjoint_kernel", 5) / 1e3
+        rec[f"{pre}plain_ms"] = plain_wall_ms(
+            lambda: C.celerite_adjoint_plain(U, P, D, W, z, S_saved, f_saved, dD, dz))
+        rec[f"{pre}bound_ms"], rec[f"{pre}bound_by"] = chain_bound(
+            U.element_size() * b * (n * r + (n - 1) * r + 3 * n + n * r + (n - 1) * (kk + r)
+                                    + 2 * n + n + 2 * n * r + (n - 1) * r + n),
+            n * g2_chain_ops(r), name, clock_hz)
+        w, tt, yy, diag = rows
+        g2_library(rec, pre, w, tt, diag, yy.expand(b, n).contiguous())
+        return (f"G2 {rec[pre + 'ms']:.4f} ms (device {rec[pre + 'device_ms']:.4f}, plain "
+                f"{rec[pre + 'plain_ms']:.1f}, bound {rec[pre + 'bound_ms']:.4f} "
+                f"{rec[pre + 'bound_by']}, autograd backward through the dense cholesky_ex + "
+                f"solve_triangular {rec[pre + 'library_ms']:.4f} ms, gradient rel diff "
+                f"{rec[pre + 'library_grad_rel']:.1e})")
+
     # times at config 5's shape: events over back-to-back calls, the
     # profiler's device time per call, the plain version's wall time (one
     # call), the chain bound; G3 at K = N against one dense cholesky_solve
@@ -2930,7 +3025,6 @@ def celerite_kernels(dev, card, cuda, clock_hz):
         D, W, z, S_saved, f_saved, dD, dz = adj
         g1 = lambda: C.celerite_forward(A, U, V, P, y, want_w=False)  # noqa: E731
         g1s = lambda: C.celerite_forward(A, U, V, P, y, save=True)  # noqa: E731
-        g2 = lambda: C.celerite_adjoint(U, P, D, W, z, S_saved, f_saved, dD, dz)  # noqa: E731
         Y = torch.from_numpy(rng.standard_normal((n, n))).to(dev, A.dtype)
         g3 = lambda: C.celerite_solve(U[0], P[0], D[0], W[0], Y)  # noqa: E731
         # the same system of row 0, dense: the walker's kernel at every lag
@@ -2952,15 +3046,7 @@ def celerite_kernels(dev, card, cuda, clock_hz):
         g1r[f"{pre}bound_ms"], g1r[f"{pre}bound_by"] = chain_bound(
             elem * b * (n + 2 * n * r + (n - 1) * r + n + 2 * n), n * g1_chain_ops(r), name,
             clock_hz)
-        g2r[f"{pre}ms"] = event_ms(g2, 10)
-        g2r[f"{pre}device_ms"] = device_us(g2, "celerite_adjoint_kernel", 5) / 1e3
-        g2r[f"{pre}plain_ms"] = plain_wall_ms(
-            lambda: C.celerite_adjoint_plain(U, P, D, W, z, S_saved, f_saved, dD, dz))
-        g2r[f"{pre}library_ms"] = None
-        kk = r * (r + 1) // 2
-        g2r[f"{pre}bound_ms"], g2r[f"{pre}bound_by"] = chain_bound(
-            elem * b * (n * r + (n - 1) * r + 3 * n + n * r + (n - 1) * (kk + r) + 2 * n
-                        + n + 2 * n * r + (n - 1) * r + n), n * g2_chain_ops(r), name, clock_hz)
+        g2_line = g2_times(g2r, pre, U, P, adj, rows, name)
         g3r[f"{pre}ms"] = event_ms(g3, 5)
         g3r[f"{pre}device_ms"] = device_us(g3, "celerite_solve_kernel", 3) / 1e3
         g3r[f"{pre}plain_ms"] = plain_wall_ms(
@@ -2988,10 +3074,8 @@ def celerite_kernels(dev, card, cuda, clock_hz):
               f"plain {g1r[pre + 'plain_ms']:.1f}, bound {g1r[pre + 'bound_ms']:.4f} "
               f"{g1r[pre + 'bound_by']}, batched dense cholesky_ex + solve_triangular "
               f"{g1r[pre + 'library_ms']:.4f} ms, ll rel diff {rel1:.1e}, "
-              f"{g1r[pre + 'library_failed_rows']} rows not positive definite); G2 "
-              f"{g2r[pre + 'ms']:.4f} ms (device "
-              f"{g2r[pre + 'device_ms']:.4f}, plain {g2r[pre + 'plain_ms']:.1f}, bound "
-              f"{g2r[pre + 'bound_ms']:.4f}); G3 K={n} {g3r[pre + 'ms']:.4f} ms (device "
+              f"{g1r[pre + 'library_failed_rows']} rows not positive definite); {g2_line}; "
+              f"G3 K={n} {g3r[pre + 'ms']:.4f} ms (device "
               f"{g3r[pre + 'device_ms']:.4f}, plain {g3r[pre + 'plain_ms']:.1f}, dense "
               f"cholesky_solve {g3r[pre + 'library_ms']:.4f} ms, rel diff {rel3:.1e}, bound "
               f"{g3r[pre + 'bound_ms']:.4f}); G3 K=1 {g3r[pre + 'k1_ms']:.4f} ms (device "
@@ -3011,16 +3095,24 @@ def celerite_kernels(dev, card, cuda, clock_hz):
     g1r["b8_bound_ms"], g1r["b8_bound_by"] = chain_bound(
         A8.element_size() * b8 * (n8 + 2 * n8 * r8 + (n8 - 1) * r8 + n8 + 2 * n8),
         n8 * g1_chain_ops(r8), "float64", clock_hz)
-    print(f"phase 27 float64, G1 at 8 walkers (mcmc(16)'s half-ensemble, "
-          f"{C.kernel_geometry(b=b8, r=r8)['blocks']} blocks): {g1r['b8_ms']:.4f} ms (device "
+    g2r = recs["celerite_adjoint"]
+    g2_b8 = g2_times(g2r, "b8_", U8, P8, adj8, rows8, "float64")
+    print(f"phase 27 float64, G1 and G2 at 8 walkers (mcmc(16)'s half-ensemble, "
+          f"{C.kernel_geometry(b=b8, r=r8)['blocks']} blocks): G1 {g1r['b8_ms']:.4f} ms (device "
           f"{g1r['b8_device_ms']:.4f}, plain {g1r['b8_plain_ms']:.1f}, batched dense "
           f"cholesky_ex + solve_triangular {g1r['b8_library_ms']:.4f} ms, ll rel diff "
           f"{g1r['b8_library_vs_kernel_rel']:.1e}, bound {g1r['b8_bound_ms']:.4f} "
-          f"{g1r['b8_bound_by']})  ({card})")
+          f"{g1r['b8_bound_by']}); {g2_b8}  ({card})")
+    g2_b4 = g2_times(g2r, "f32_b4_", U4, P4, adj4, rows4, "float32")
+    print(f"phase 27 float32, G2 at config 13's 4 walkers "
+          f"({C.kernel_geometry(b=4, r=6, adjoint=True)['blocks']} block): {g2_b4}  ({card})")
     for rec in recs.values():
         rec["shape"] = ("config 5: 64 walkers x N = 2148, the masked BrownianTerm (R = 6), "
                         "float64 unprefixed and float32 under f32_; G3 one row with K = N "
-                        "right-hand sides (k1_: K = 1); G1 b8_: 8 walkers, float64")
+                        "right-hand sides (k1_: K = 1); G1 and G2 b8_: 8 walkers, float64; G2 "
+                        "f32_b4_: 4 walkers (config 13's chains), float32")
+    check(all(a["local_bytes"] == 0 for a in g2_attrs.values()),
+          "G2 uses no local memory at R = 1..8 in float32 and float64")
     return recs
 
 
@@ -3393,6 +3485,83 @@ def k1_draw(rng, r, b, n, dtype):
     return coeffs, dt, A, Q, H, diag, y
 
 
+def config13(dev, card):
+    """Config 13: ``run_nuts`` on SpottedStar's BrownianTerm posterior
+    (float32, 4 chains, depth 6, 40 + 60 warmup): grad-evals/s (the chains'
+    leapfrogs, warmup included, over the run's host-clock seconds),
+    divergences, ESS, R-hat, launches a batched leapfrog and the busy share
+    of a short run. Prints its line; returns the record and ``nuts_run(c,
+    steps, warmup, depth) -> (result, seconds)`` for the chain scaling. It
+    imports the package on the path, so a script run from another
+    checkout's root measures that checkout's port."""
+    import torch
+
+    from periodicity_tpu_torch import data as pdata
+    from periodicity_tpu_torch.gp import log_likelihood, run_nuts
+    from periodicity_tpu_torch.models.gp import mcmc
+    from periodicity_tpu_torch.models.gp.nuts import _value_and_grad
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm
+
+    ts, ys, dys = pdata.SpottedStar()
+    tt, yy, diag = (torch.from_numpy(np.ascontiguousarray(a)).to(dev).float()
+                    for a in (ts, ys - ys.mean(), dys**2))
+
+    def c13_log_prob(w):
+        c13_log_prob.calls += 1
+        term = BrownianTerm(0.01 * torch.exp(w[:, 0]), 20.0 * torch.exp(w[:, 1]),
+                            10.0 * torch.exp(w[:, 2]), 0.3 * torch.sigmoid(w[:, 3]))
+        ll = log_likelihood(term, tt, diag, yy)
+        return torch.where(torch.isfinite(ll), ll, -1e25) - 0.5 * torch.sum(w**2, dim=-1)
+
+    def nuts_run(c, steps, warmup, depth):
+        x0 = torch.zeros((c, 4), dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_nuts(c13_log_prob, x0, 0, steps, n_warmup=warmup, max_depth=depth)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    c13_log_prob.calls = 0
+    res, s13 = nuts_run(C13_CHAINS, C13_STEPS, C13_WARMUP, C13_DEPTH)
+    batched = c13_log_prob.calls
+    leapfrogs = int(res["n_leapfrog"].sum() + res["n_leapfrog_warmup"].sum())
+    chain = res["chain"].cpu().numpy()
+    check(np.isfinite(chain).all(), "config 13: finite chains")
+    ess13 = mcmc.ess(chain)
+    rhat13 = mcmc.rhat(chain)
+    vg = _value_and_grad(c13_log_prob)
+    z13 = res["chain"][-1]
+    work, _ = profiled(lambda: vg(z13), pad=2)
+    grad_launches = len(work)
+    last = {}
+
+    def short_run():
+        c13_log_prob.calls = 0
+        run_nuts(c13_log_prob, z13, 1, 2, n_warmup=2, max_depth=4)
+        last["calls"] = c13_log_prob.calls
+
+    work, wall = profiled(short_run, pad=0)
+    busy13 = sum(us for _, us in work) / 1e6 / wall
+    # a batched leapfrog evaluates every chain's gradient in one call
+    leap_launches = len(work) / last["calls"]
+    c13 = {"seconds": s13, "leapfrogs": leapfrogs, "grad_evals_per_s": leapfrogs / s13,
+           "batched_leapfrogs": batched, "batched_per_s": batched / s13,
+           "divergences": int(res["divergences"].sum()), "min_ess": float(np.min(ess13)),
+           "max_rhat": float(np.max(rhat13)), "launches_per_leapfrog": leap_launches,
+           "launches_per_gradient": grad_launches,
+           "busy_share": busy13, "mean_tree_depth": float(res["tree_depth"].float().mean()),
+           "step_size": res["step_size"].tolist()}
+    print(f"phase 33 config 13 (4 chains, depth 6, {C13_STEPS} + {C13_WARMUP} warmup, f32): "
+          f"{leapfrogs / s13:.1f} grad-evals/s ({leapfrogs} leapfrogs of the chains in {batched} "
+          f"batched calls, {s13:.2f} s), "
+          f"divergences {c13['divergences']}, min ESS {c13['min_ess']:.1f}, max R-hat "
+          f"{c13['max_rhat']:.3f}, {leap_launches:.0f} device launches a batched leapfrog "
+          f"({grad_launches} of them the gradient), busy "
+          f"{busy13:.1%} (with the one-thread G2, an earlier H100 run: 253.6 grad-evals/s, "
+          f"25.6% busy)  ({card})")
+    return c13, nuts_run
+
+
 def kalman_slice(dev, card, cuda):
     """Phases 31-33: K1 against its plain version, config 7's solver points,
     config 13 and the NUTS and solver paths of the modelers. Prints the
@@ -3716,60 +3885,7 @@ def kalman_slice(dev, card, cuda):
     # with its assertions; the modelers' pscan, blocked and chunked solvers
     # against the scan on SpottedStar (f64); QuasiPeriodicGP.nuts
     # (tests/test_nuts.py:109-129)
-    tt, yy, diag = (cuda(a).float() for a in (ts, ys - ys.mean(), dys**2))
-
-    def c13_log_prob(w):
-        c13_log_prob.calls += 1
-        term = BrownianTerm(0.01 * torch.exp(w[:, 0]), 20.0 * torch.exp(w[:, 1]),
-                            10.0 * torch.exp(w[:, 2]), 0.3 * torch.sigmoid(w[:, 3]))
-        ll = log_likelihood(term, tt, diag, yy)
-        return torch.where(torch.isfinite(ll), ll, -1e25) - 0.5 * torch.sum(w**2, dim=-1)
-
-    def nuts_run(c, steps, warmup, depth):
-        x0 = torch.zeros((c, 4), dtype=torch.float32, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run_nuts(c13_log_prob, x0, 0, steps, n_warmup=warmup, max_depth=depth)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0
-
-    c13_log_prob.calls = 0
-    res, s13 = nuts_run(C13_CHAINS, C13_STEPS, C13_WARMUP, C13_DEPTH)
-    batched = c13_log_prob.calls
-    leapfrogs = int(res["n_leapfrog"].sum() + res["n_leapfrog_warmup"].sum())
-    chain = res["chain"].cpu().numpy()
-    check(np.isfinite(chain).all(), "config 13: finite chains")
-    ess13 = mcmc.ess(chain)
-    rhat13 = mcmc.rhat(chain)
-    vg = _value_and_grad(c13_log_prob)
-    z13 = res["chain"][-1]
-    work, _ = profiled(lambda: vg(z13), pad=2)
-    grad_launches = len(work)
-    last = {}
-
-    def short_run():
-        c13_log_prob.calls = 0
-        run_nuts(c13_log_prob, z13, 1, 2, n_warmup=2, max_depth=4)
-        last["calls"] = c13_log_prob.calls
-
-    work, wall = profiled(short_run, pad=0)
-    busy13 = sum(us for _, us in work) / 1e6 / wall
-    # a batched leapfrog evaluates every chain's gradient in one call
-    leap_launches = len(work) / last["calls"]
-    c13 = {"seconds": s13, "leapfrogs": leapfrogs, "grad_evals_per_s": leapfrogs / s13,
-           "batched_leapfrogs": batched, "batched_per_s": batched / s13,
-           "divergences": int(res["divergences"].sum()), "min_ess": float(np.min(ess13)),
-           "max_rhat": float(np.max(rhat13)), "launches_per_leapfrog": leap_launches,
-           "launches_per_gradient": grad_launches,
-           "busy_share": busy13, "mean_tree_depth": float(res["tree_depth"].float().mean()),
-           "step_size": res["step_size"].tolist()}
-    print(f"phase 33 config 13 (4 chains, depth 6, {C13_STEPS} + {C13_WARMUP} warmup, f32): "
-          f"{leapfrogs / s13:.1f} grad-evals/s ({leapfrogs} leapfrogs of the chains in {batched} "
-          f"batched calls, {s13:.2f} s), "
-          f"divergences {c13['divergences']}, min ESS {c13['min_ess']:.1f}, max R-hat "
-          f"{c13['max_rhat']:.3f}, {leap_launches:.0f} device launches a batched leapfrog "
-          f"({grad_launches} of them the gradient), busy "
-          f"{busy13:.1%}  ({card})")
+    c13, nuts_run = config13(dev, card)
     scaling = {}
     for c in C13_SCALING:
         res_c, s_c = nuts_run(c, 10, 20, 4)

@@ -44,8 +44,13 @@
 // each step's update with f, for G2, which recomputes the rest of the step
 // from them.
 //
-// G2: one thread walks one walker, the state in registers (R is a
-// template parameter, 1 to 8, so the state arrays are registers).
+// G2: G1's lanes on the reverse sweep. Lane i < R owns row i of the
+// adjoint state G and of the state the forward step rebuilds from the saved
+// one, O(R) registers a lane (R is a template parameter, 1 to 8); the sums
+// across rows come by __shfl_sync in the plain order, as in G1. Three
+// staging warps bring the saved state and the other inputs of the next 8 or
+// 16 steps into shared memory (dynamic, up to 135 KB a block at R = 8 in
+// float64) and write the outputs out of it.
 //
 // G3: one column of the right-hand sides a lane, each column's recursion
 // one lane's walk in the plain order, 32 columns a block, so K = 2148
@@ -65,6 +70,8 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 #include "rn.cuh"
 
 namespace {
@@ -72,20 +79,22 @@ namespace {
 constexpr int kMaxR = 8;
 constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kRowsPerBlock = 32;     // G2: a thread a walker
 constexpr int kForwardWarps = 2;      // G1: one warp walks, one stages
+constexpr int kAdjointWarps = 4;      // G2: one warp walks, three stage
 constexpr int kColsPerBlock = kWarp;  // G3: a lane a column
 constexpr int kSolveWarps = 5;        // G3: one warp walks, four stage and finish
 constexpr int kRowTile = 32;          // G3: rows a staged tile
+// a block's shared memory on Hopper, dynamic past the first 48 KB
+constexpr int kMaxSharedBytes = 227 * 1024;
 
 using rn::Rn;
 
-// G1's lanes a walker: the next power of two >= R
+// G1's and G2's lanes a walker: the next power of two >= R
 __host__ __device__ constexpr int group_lanes(int r) {
   return r <= 1 ? 1 : r <= 2 ? 2 : r <= 4 ? 4 : 8;
 }
 
-// G1's steps a staged tile: 8 at R <= 2, whose blocks hold 16 or 32 walkers
+// G1's and G2's steps a staged tile: 8 at R <= 2, whose blocks hold 16 or 32 walkers
 __host__ __device__ constexpr int step_tile(int r) { return r > 2 ? 16 : 8; }
 
 // slot of (i, j), i <= j, in the packed upper triangle
@@ -97,6 +106,16 @@ __device__ __forceinline__ constexpr int tri(int i, int j) {
 template <int R>
 __device__ __forceinline__ constexpr int sym(int i, int j) {
   return i <= j ? tri<R>(i, j) : tri<R>(j, i);
+}
+
+// a / d as Rn<T>::div rounds it, with a zero a kept off the division's slow
+// path: a masked slot's W-bar is 0 at every step of G2, and __ddiv_rn /
+// __fdiv_rn send a zero numerator to a subroutine call that stalls the
+// whole warp. 0 / d is a zero signed by a and d, which a * d gives for
+// every finite nonzero d; an infinite, zero or NaN d takes the division.
+template <typename T>
+__device__ __forceinline__ T div_rn(T a, T d) {
+  return a == T(0) && isfinite(d) && d != T(0) ? Rn<T>::mul(a, d) : Rn<T>::div(a, d);
 }
 
 // one element (4 or 8 bytes) from device to shared memory with cp.async
@@ -303,11 +322,64 @@ celerite_forward_kernel(const T* __restrict__ A, const T* __restrict__ U,
   }
 }
 
+// G2's shared tiles: one record a walker and buffer, holding the inputs of
+// a tile of TS steps going down in t and their outputs (offsets in elements
+// of T). Step t of a tile that holds t_lo .. t_hi sits at k = t - t_lo; the
+// rows W[t - 1], W[t] and D[t - 1], D[t] at k and k + 1. S_saved[t - 1]
+// arrives unpacked, row i at i (R + 1), so each lane reads its own row of
+// S~ at fixed offsets; the padding and an odd record length put the lanes'
+// and the walkers' reads of one step in different banks.
+template <int R>
+struct AdjointTile {
+  static constexpr int G = group_lanes(R), WB = kWarp / G, TS = step_tile(R), SR = R + 1;
+  static constexpr int U = 0;                   // U[t]            [TS][R]
+  static constexpr int P = U + TS * R;          // P[t - 1]        [TS][R]
+  static constexpr int F = P + TS * R;          // f_saved[t - 1]  [TS][R]
+  static constexpr int W = F + TS * R;          // W[t_lo - 1 ..]  [TS + 1][R]
+  static constexpr int S = W + (TS + 1) * R;    // S_saved[t - 1]  [TS][R][SR]
+  static constexpr int D = S + TS * R * SR;     // D[t_lo - 1 ..]  [TS + 1]
+  static constexpr int Z = D + TS + 1;          // z[t - 1]        [TS]
+  static constexpr int DD = Z + TS;             // dD[t - 1]       [TS]
+  static constexpr int DZ = DD + TS;            // dz[t - 1]       [TS]
+  static constexpr int OU = DZ + TS;            // dU[t]           [TS][R]
+  static constexpr int OV = OU + TS * R;        // dV[t]           [TS][R]
+  static constexpr int OP = OV + TS * R;        // dP[t - 1]       [TS][R]
+  static constexpr int OY = OP + TS * R;        // dy[t]           [TS]
+  static constexpr int OA = OY + TS;            // dA[t]           [TS]
+  static constexpr int stride = (OA + TS) | 1;  // elements a record
+  template <typename T>
+  static constexpr int bytes() {
+    return static_cast<int>(sizeof(T)) * 2 * WB * stride;
+  }
+};
+
 // G2: the reverse sweep of G1 with y, in the order of
-// ops/celerite.py::celerite_adjoint_plain. G is the adjoint of S, kept
-// symmetric (packed); dD and dz are the adjoints of G1's outputs.
+// ops/celerite.py::celerite_adjoint_plain, on G1's lanes. dD and dz are the
+// adjoints of G1's outputs; the adjoint state G of S is carried in full.
+// Per step t = n - 1 .. 1, p = P[t-1], S~ = S_saved[t-1] + D_{t-1} W_{t-1}
+// W_{t-1}^T and S_t = (p_i p_j) S~ recomputed from the saved state:
+//   dy_t = zb;  fb += -zb u;  zb = dz_{t-1} + sum_i (fb_i p_i) W_{t-1,i}
+//   dV_t = wb / D_t;  db -= (sum_i wb_i W_{t,i}) / D_t;  dA_t = db
+//   sub = -dV_t - db u;  dU_t = -zb p f~ - db Su + S_t sub
+//   G += (sub u^T + u sub^T) / 2;  dP_{t-1} = fb f~ + 2 sum_j (G S~)_ij p_j
+//   G *= p_i p_j;  q = G W_{t-1};  db = dD_{t-1} + W_{t-1} . q
+//   wb = fb p z_{t-1} + D_{t-1} (q + q)
+// Lane i < R owns row i of G, of S~ and of S_t, and its own p_i, u_i,
+// W_{t-1,i}, W_{t,i}, f~_i, wb_i and fb_i: G1's group of lanes a walker, a
+// group inside a warp. Each lane computes the plain version's entries (i, j)
+// in their own operand order, so its rows are the plain rows. The sums over
+// j within a row (Su, dU's, dP's, q) stay on the lane; the three over the
+// rows (sum fb_i p_i W_{t-1,i}, wb . W_t, W_{t-1} . q) are taken by every
+// lane from __shfl_sync products in the plain order, so every lane holds
+// the same zb and db, NaN included, and sub_j comes the same way. Lanes
+// past R repeat row R - 1; where R < G the last of them also divides
+// W-bar . W_t, so a step has one division a lane. As in G1, warp 0 walks and touches no device
+// memory inside a tile; warps 1-3 stage the next tile's inputs with
+// cp.async and write the last tile's dA, dy, dU, dV and dP out of the
+// shared records (AdjointTile, in dynamic shared memory); the warps meet at
+// one barrier a tile. Warp 0 finishes t = 0 itself.
 template <typename T, int R>
-__global__ void __launch_bounds__(kRowsPerBlock)
+__global__ void __launch_bounds__(kAdjointWarps * kWarp)
 celerite_adjoint_kernel(const T* __restrict__ U, const T* __restrict__ P,
                         const T* __restrict__ D, const T* __restrict__ W,
                         const T* __restrict__ z, const T* __restrict__ s_saved,
@@ -316,163 +388,224 @@ celerite_adjoint_kernel(const T* __restrict__ U, const T* __restrict__ P,
                         T* __restrict__ dU, T* __restrict__ dV, T* __restrict__ dP,
                         T* __restrict__ dy) {
   using O = Rn<T>;
-  constexpr int K = R * (R + 1) / 2;
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= b) return;
-  const size_t rn_ = static_cast<size_t>(row) * n;
-  const size_t rp_ = static_cast<size_t>(row) * (n - 1);
-  const T half = T(0.5);
+  using L = AdjointTile<R>;
+  constexpr int K = R * (R + 1) / 2, G = L::G, WB = L::WB, TS = L::TS, SR = L::SR;
+  extern __shared__ __align__(16) unsigned char g2_smem[];
+  T* const records = reinterpret_cast<T*>(g2_smem);
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int first = blockIdx.x * WB;
+  const int tiles = (n - 1 + TS - 1) / TS;
+  // tile m holds steps t_lo .. t_hi = n - 1 - m TS, cnt of them
+  auto span = [&](int m, int& cnt, int& t_lo) {
+    const int t_hi = n - 1 - m * TS;
+    cnt = min(TS, t_hi);
+    t_lo = t_hi - cnt + 1;
+  };
 
-  T G[K], wb[R], fb[R];
+  if (warp > 0) {
+    constexpr int H = (kAdjointWarps - 1) * kWarp;  // the staging threads
+    const int h = threadIdx.x - kWarp;
+    // the entry (i, j) of S_saved this thread unpacks, at the steps k =
+    // h / R^2 + c Q of each tile: Q groups of R^2 threads
+    constexpr int Q = H / (R * R);
+    const int ij = h % (R * R), i = ij / R, j = ij % R;
+    const bool unpacks = h < Q * R * R;
+    const int s_src = sym<R>(i, j), s_dst = i * SR + j;
+    // tile m's inputs into buffer m % 2; walkers past b read walker b - 1
+    auto stage = [&](int m) {
+      int cnt, t_lo;
+      span(m, cnt, t_lo);
 #pragma unroll
-  for (int k = 0; k < K; ++k) G[k] = T(0);
+      for (int w = 0; w < WB; ++w) {
+        const size_t r = static_cast<size_t>(min(first + w, b - 1));
+        T* const rec = records + ((m & 1) * WB + w) * L::stride;
+        const size_t o_t = (r * n + t_lo) * R, o_p = (r * (n - 1) + t_lo - 1) * R;
+        for (int e = h; e < cnt * R; e += H) {
+          copy_async(rec + L::U + e, U + o_t + e);
+          copy_async(rec + L::P + e, P + o_p + e);
+          copy_async(rec + L::F + e, f_saved + o_p + e);
+        }
+        for (int e = h; e < (cnt + 1) * R; e += H) copy_async(rec + L::W + e, W + o_t - R + e);
+        const size_t o = r * n + t_lo - 1;
+        for (int e = h; e <= cnt; e += H) {
+          copy_async(rec + L::D + e, D + o + e);
+          if (e < cnt) {
+            copy_async(rec + L::Z + e, z + o + e);
+            copy_async(rec + L::DD + e, dD + o + e);
+            copy_async(rec + L::DZ + e, dz + o + e);
+          }
+        }
+        if (unpacks) {
+          const T* const src = s_saved + (r * (n - 1) + t_lo - 1) * K + s_src;
+          for (int k = h / (R * R); k < cnt; k += Q)
+            copy_async(rec + L::S + k * R * SR + s_dst, src + k * K);
+        }
+      }
+    };
+    // tile m's outputs of the block's walkers below b
+    auto flush = [&](int m) {
+      int cnt, t_lo;
+      span(m, cnt, t_lo);
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    wb[i] = T(0);
-    fb[i] = T(0);
+      for (int w = 0; w < WB; ++w) {
+        if (first + w >= b) break;
+        const T* const rec = records + ((m & 1) * WB + w) * L::stride;
+        const size_t r = static_cast<size_t>(first + w);
+        const size_t o_t = (r * n + t_lo) * R, o_p = (r * (n - 1) + t_lo - 1) * R;
+        for (int e = h; e < cnt * R; e += H) {
+          dU[o_t + e] = rec[L::OU + e];
+          dV[o_t + e] = rec[L::OV + e];
+          dP[o_p + e] = rec[L::OP + e];
+        }
+        for (int e = h; e < cnt; e += H) {
+          dy[r * n + t_lo + e] = rec[L::OY + e];
+          dA[r * n + t_lo + e] = rec[L::OA + e];
+        }
+      }
+    };
+    if (tiles > 0) stage(0);
+    copy_wait_all();
+    __syncthreads();
+    for (int m = 0; m <= tiles; ++m) {
+      if (m + 1 < tiles) stage(m + 1);
+      if (m > 0) flush(m - 1);
+      copy_wait_all();
+      __syncthreads();
+    }
+    return;
   }
-  T db = dD[rn_ + n - 1];
-  T zb = dz[rn_ + n - 1];
-  for (int t = n - 1; t >= 1; --t) {
-    T p[R], u[R], w_prev[R], w[R], fs[R];
+
+  const int slot = lane / G;         // the walker within the block
+  const int i = lane % G;            // the row this lane owns
+  const int ir = i < R ? i : R - 1;  // a lane past R repeats row R - 1
+  const int base = slot * G;         // the group's first lane
+  const int walker = first + slot;
+  const size_t rn_ = static_cast<size_t>(walker < b ? walker : b - 1) * n;
+  const T half = T(0.5);
+  // the group's sum of x over lanes 0 .. R - 1, left to right
+  auto rows_sum = [&](T x) {
+    T acc = __shfl_sync(kFullMask, x, base);
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      p[i] = P[(rp_ + t - 1) * R + i];
-      u[i] = U[(rn_ + t) * R + i];
-      w_prev[i] = W[(rn_ + t - 1) * R + i];
-      w[i] = W[(rn_ + t) * R + i];
-      fs[i] = f_saved[(rp_ + t - 1) * R + i];
-    }
-    const T d_prev = D[rn_ + t - 1], z_prev = z[rn_ + t - 1], d = D[rn_ + t];
-    const T dD_prev = dD[rn_ + t - 1], dz_prev = dz[rn_ + t - 1];
-    // the forward step again, from the saved state
-    T st[K];
+    for (int j = 1; j < R; ++j) acc = O::add(acc, __shfl_sync(kFullMask, x, base + j));
+    return acc;
+  };
+  T g[R];  // row ir of G
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
+  for (int j = 0; j < R; ++j) g[j] = T(0);
+  T wb = T(0), fb = T(0);
+  T db = dD[rn_ + n - 1], zb = dz[rn_ + n - 1];
+  __syncthreads();
+
+  for (int m = 0; m <= tiles; ++m) {
+    if (m < tiles) {
+      const int cnt = min(TS, n - 1 - m * TS);
+      // the step's rows, from k = cnt - 1 down, advanced a step at a time:
+      // the arrays of R a step at fixed offsets from row (this lane's own
+      // element from mine), those of one from one, and its row of S~
+      T* const rec = records + ((m & 1) * WB + slot) * L::stride;
+      T* row = rec + (cnt - 1) * R;
+      T* mine = row + ir;
+      T* one = rec + cnt - 1;
+      const T* srow = rec + L::S + ((cnt - 1) * R + ir) * SR;
+#pragma unroll 2
+      for (int s = 0; s < cnt; ++s) {
+        T u[R], p[R], wp[R];
 #pragma unroll
-      for (int j = i; j < R; ++j) {
-        const int k = tri<R>(i, j);
-        st[k] = O::add(s_saved[(rp_ + t - 1) * K + k],
-                       O::mul(d_prev, O::mul(w_prev[i], w_prev[j])));
+        for (int j = 0; j < R; ++j) {
+          u[j] = row[L::U + j];
+          p[j] = row[L::P + j];
+          wp[j] = row[L::W + j];  // W[t - 1]; W[t] a row on
+        }
+        const T ui = mine[L::U], pi = mine[L::P], wpi = mine[L::W], wi = mine[L::W + R];
+        const T d_prev = one[L::D], d = one[L::D + 1], z_prev = one[L::Z];
+        // the forward step again: row ir of S~ and of S_t, and Su_ir
+        T st[R], sn[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          st[j] = O::add(srow[j], O::mul(d_prev, O::mul(wpi, wp[j])));
+          sn[j] = O::mul(O::mul(pi, p[j]), st[j]);
+        }
+        T su = O::mul(sn[0], u[0]);
+#pragma unroll
+        for (int j = 1; j < R; ++j) su = O::add(su, O::mul(sn[j], u[j]));
+        const T ft = O::add(mine[L::F], O::mul(wpi, z_prev));
+        // z_t = y_t - u . f_t;  f_t = p (f_{t-1} + W_{t-1} z_{t-1})
+        one[L::OY] = zb;
+        const T nzb = -zb;
+        T ub = O::mul(nzb, O::mul(pi, ft));
+        fb = O::add(fb, O::mul(nzb, ui));
+        const T pb = O::mul(fb, ft);
+        const T ftb = O::mul(fb, pi);
+        const T wb_prev = O::mul(ftb, z_prev);
+        const T zb_prev = O::add(one[L::DZ], rows_sum(O::mul(ftb, wpi)));
+        // W_t = (v_t - Su) / D_t
+        const T ww = rows_sum(O::mul(wb, wi));
+        T vb, wwd;
+        if constexpr (R < G) {
+          // one division a lane, the last lane (past R) dividing ww: each
+          // division ends a basic block (its slow path is a call), and two
+          // in a row were the longest stretch of a step
+          const T q = div_rn(i == G - 1 ? ww : wb, d);
+          vb = __shfl_sync(kFullMask, q, base + ir);
+          wwd = __shfl_sync(kFullMask, q, base + G - 1);
+        } else {
+          vb = div_rn(wb, d);
+          wwd = div_rn(ww, d);
+        }
+        mine[L::OV] = vb;
+        db = O::sub(db, wwd);
+        // D_t = a_t - u . Su
+        one[L::OA] = db;
+        ub = O::sub(ub, O::mul(db, su));
+        const T sub = O::sub(-vb, O::mul(db, ui));
+        // Su = S_t u_t, and G's symmetric update
+        T sj[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) sj[j] = __shfl_sync(kFullMask, sub, base + j);
+        T du = O::mul(sn[0], sj[0]);
+#pragma unroll
+        for (int j = 1; j < R; ++j) du = O::add(du, O::mul(sn[j], sj[j]));
+        mine[L::OU] = O::add(ub, du);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          g[j] = O::add(g[j], O::mul(O::add(O::mul(sub, u[j]), O::mul(ui, sj[j])), half));
+        // S_t = (p_i p_j) S~
+        T rp = O::mul(O::mul(g[0], st[0]), p[0]);
+#pragma unroll
+        for (int j = 1; j < R; ++j) rp = O::add(rp, O::mul(O::mul(g[j], st[j]), p[j]));
+        mine[L::OP] = O::add(pb, O::add(rp, rp));
+#pragma unroll
+        for (int j = 0; j < R; ++j) g[j] = O::mul(g[j], O::mul(pi, p[j]));
+        // S~ = S_{t-1} + D_{t-1} W_{t-1} W_{t-1}^T
+        T q = O::mul(g[0], wp[0]);
+#pragma unroll
+        for (int j = 1; j < R; ++j) q = O::add(q, O::mul(g[j], wp[j]));
+        db = O::add(one[L::DD], rows_sum(O::mul(wpi, q)));
+        wb = O::add(wb_prev, O::mul(d_prev, O::add(q, q)));
+        fb = ftb;
+        zb = zb_prev;
+        row -= R;
+        mine -= R;
+        one -= 1;
+        srow -= R * SR;
       }
     }
-    T su[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      T acc = O::mul(O::mul(O::mul(p[i], p[0]), st[sym<R>(i, 0)]), u[0]);
-#pragma unroll
-      for (int j = 1; j < R; ++j)
-        acc = O::add(acc, O::mul(O::mul(O::mul(p[i], p[j]), st[sym<R>(i, j)]), u[j]));
-      su[i] = acc;
-    }
-    T ft[R], fn[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      ft[i] = O::add(fs[i], O::mul(w_prev[i], z_prev));
-      fn[i] = O::mul(p[i], ft[i]);
-    }
-    // z_t = y_t - u . f_t
-    dy[rn_ + t] = zb;
-    const T nzb = -zb;
-    T ub[R], pb[R], ftb[R], wb_prev[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      ub[i] = O::mul(nzb, fn[i]);
-      fb[i] = O::add(fb[i], O::mul(nzb, u[i]));
-      // f_t = p (f_{t-1} + W_{t-1} z_{t-1})
-      pb[i] = O::mul(fb[i], ft[i]);
-      ftb[i] = O::mul(fb[i], p[i]);
-      wb_prev[i] = O::mul(ftb[i], z_prev);
-    }
-    T zb_prev = O::mul(ftb[0], w_prev[0]);
-#pragma unroll
-    for (int i = 1; i < R; ++i) zb_prev = O::add(zb_prev, O::mul(ftb[i], w_prev[i]));
-    zb_prev = O::add(dz_prev, zb_prev);
-    // W_t = (v_t - Su) / D_t
-    T sub[R];
-    T ww = O::mul(wb[0], w[0]);
-#pragma unroll
-    for (int i = 1; i < R; ++i) ww = O::add(ww, O::mul(wb[i], w[i]));
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const T vb = O::div(wb[i], d);
-      dV[(rn_ + t) * R + i] = vb;
-      sub[i] = -vb;
-    }
-    db = O::sub(db, O::div(ww, d));
-    // D_t = a_t - u . Su
-    dA[rn_ + t] = db;
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      ub[i] = O::sub(ub[i], O::mul(db, su[i]));
-      sub[i] = O::sub(sub[i], O::mul(db, u[i]));
-    }
-    // Su = S_t u_t
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      T acc = O::mul(O::mul(O::mul(p[i], p[0]), st[sym<R>(i, 0)]), sub[0]);
-#pragma unroll
-      for (int j = 1; j < R; ++j)
-        acc = O::add(acc, O::mul(O::mul(O::mul(p[i], p[j]), st[sym<R>(i, j)]), sub[j]));
-      dU[(rn_ + t) * R + i] = O::add(ub[i], acc);
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = i; j < R; ++j) {
-        const int k = tri<R>(i, j);
-        G[k] = O::add(G[k], O::mul(O::add(O::mul(sub[i], u[j]), O::mul(u[i], sub[j])), half));
-      }
-    }
-    // S_t = (p_i p_j) S~
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      T acc = O::mul(O::mul(G[sym<R>(i, 0)], st[sym<R>(i, 0)]), p[0]);
-#pragma unroll
-      for (int j = 1; j < R; ++j)
-        acc = O::add(acc, O::mul(O::mul(G[sym<R>(i, j)], st[sym<R>(i, j)]), p[j]));
-      dP[(rp_ + t - 1) * R + i] = O::add(pb[i], O::add(acc, acc));
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = i; j < R; ++j) {
-        const int k = tri<R>(i, j);
-        G[k] = O::mul(G[k], O::mul(p[i], p[j]));
-      }
-    }
-    // S~ = S_{t-1} + D_{t-1} W_{t-1} W_{t-1}^T
-    T q[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      T acc = O::mul(G[sym<R>(i, 0)], w_prev[0]);
-#pragma unroll
-      for (int j = 1; j < R; ++j) acc = O::add(acc, O::mul(G[sym<R>(i, j)], w_prev[j]));
-      q[i] = acc;
-    }
-    T wq = O::mul(w_prev[0], q[0]);
-#pragma unroll
-    for (int i = 1; i < R; ++i) wq = O::add(wq, O::mul(w_prev[i], q[i]));
-    db = O::add(dD_prev, wq);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      wb[i] = O::add(wb_prev[i], O::mul(d_prev, O::add(q[i], q[i])));
-      fb[i] = ftb[i];
-    }
-    zb = zb_prev;
+    __syncthreads();
   }
   // t = 0: D_0 = A_0, W_0 = V_0 / D_0, z_0 = y_0
-  dy[rn_] = zb;
   const T d0 = D[rn_];
-  T ww = O::mul(wb[0], W[rn_ * R]);
-#pragma unroll
-  for (int i = 1; i < R; ++i) ww = O::add(ww, O::mul(wb[i], W[rn_ * R + i]));
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    dV[rn_ * R + i] = O::div(wb[i], d0);
+  const T ww = rows_sum(O::mul(wb, W[rn_ * R + ir]));
+  const T vb = div_rn(wb, d0);
+  const T da = O::sub(db, div_rn(ww, d0));
+  if (walker < b && i < R) {
+    dV[rn_ * R + i] = vb;
     dU[rn_ * R + i] = T(0);
+    if (i == 0) {
+      dy[rn_] = zb;
+      dA[rn_] = da;
+    }
   }
-  dA[rn_] = O::sub(db, O::div(ww, d0));
 }
 
 // G3: X = K^{-1} Y for one factored system, Y [n, k], a lane a column.
@@ -711,18 +844,40 @@ cudaError_t forward(const T* A, const T* U, const T* V, const T* P, const T* y, 
   }
 }
 
+template <typename T, int R>
+cudaError_t adjoint_r(const T* U, const T* P, const T* D, const T* W, const T* z,
+                      const T* s_saved, const T* f_saved, const T* dD, const T* dz, int b, int n,
+                      T* dA, T* dU, T* dV, T* dP, T* dy, cudaStream_t stream) {
+  constexpr int bytes = AdjointTile<R>::template bytes<T>();
+  static_assert(bytes <= kMaxSharedBytes, "G2's tiles fit in a block's shared memory");
+  // the kernel's shared-memory limit, raised once a device (the call costs
+  // host time and the answer never changes)
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev % 64);
+  if (!(raised.load() & bit)) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&celerite_adjoint_kernel<T, R>),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    raised.fetch_or(bit);
+  }
+  celerite_adjoint_kernel<T, R><<<forward_blocks(b, R), kAdjointWarps * kWarp, bytes, stream>>>(
+      U, P, D, W, z, s_saved, f_saved, dD, dz, b, n, dA, dU, dV, dP, dy);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t adjoint(const T* U, const T* P, const T* D, const T* W, const T* z,
                     const T* s_saved, const T* f_saved, const T* dD, const T* dz, int b, int n,
                     int r, T* dA, T* dU, T* dV, T* dP, T* dy, cudaStream_t stream) {
   if (b < 1 || n < 1) return cudaErrorInvalidValue;
-  const int blocks = (b + kRowsPerBlock - 1) / kRowsPerBlock;
   switch (r) {
-#define PERIODICITY_CELERITE_CASE(RR)                                                     \
-  case RR:                                                                                \
-    celerite_adjoint_kernel<T, RR><<<blocks, kRowsPerBlock, 0, stream>>>(                 \
-        U, P, D, W, z, s_saved, f_saved, dD, dz, b, n, dA, dU, dV, dP, dy);               \
-    return cudaGetLastError();
+#define PERIODICITY_CELERITE_CASE(RR) \
+  case RR:                            \
+    return adjoint_r<T, RR>(U, P, D, W, z, s_saved, f_saved, dD, dz, b, n, dA, dU, dV, dP, \
+                            dy, stream);
     PERIODICITY_CELERITE_CASE(1)
     PERIODICITY_CELERITE_CASE(2)
     PERIODICITY_CELERITE_CASE(3)
@@ -735,6 +890,39 @@ cudaError_t adjoint(const T* U, const T* P, const T* D, const T* W, const T* z,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// G2's compiled resources: out = {local memory bytes a thread, registers a
+// thread, dynamic shared memory bytes a block}
+template <typename T>
+cudaError_t adjoint_attributes(int r, int* out) {
+  cudaFuncAttributes a{};
+  cudaError_t err = cudaErrorInvalidValue;
+  int bytes = 0;
+  switch (r) {
+#define PERIODICITY_CELERITE_CASE(RR)                                                    \
+  case RR:                                                                               \
+    err = cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(                       \
+                                        &celerite_adjoint_kernel<T, RR>));               \
+    bytes = AdjointTile<RR>::template bytes<T>();                                        \
+    break;
+    PERIODICITY_CELERITE_CASE(1)
+    PERIODICITY_CELERITE_CASE(2)
+    PERIODICITY_CELERITE_CASE(3)
+    PERIODICITY_CELERITE_CASE(4)
+    PERIODICITY_CELERITE_CASE(5)
+    PERIODICITY_CELERITE_CASE(6)
+    PERIODICITY_CELERITE_CASE(7)
+    PERIODICITY_CELERITE_CASE(8)
+#undef PERIODICITY_CELERITE_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  out[0] = static_cast<int>(a.localSizeBytes);
+  out[1] = a.numRegs;
+  out[2] = bytes;
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -798,9 +986,9 @@ int celerite_adjoint_f64(const double* U, const double* P, const double* D, cons
                                           dU, dV, dP, dy, stream));
 }
 
-// G1's launch: out = {lanes a walker, walkers a block, blocks, threads a
-// block, steps a staged tile}; G3's: out = {columns a block, blocks,
-// threads a block, rows a staged tile}
+// G1's launch, and G2's (the same but for its threads): out = {lanes a
+// walker, walkers a block, blocks, threads a block, steps a staged tile};
+// G3's: out = {columns a block, blocks, threads a block, rows a staged tile}
 int celerite_forward_geometry(int b, int r, int* out) {
   if (b < 1 || r < 1 || r > kMaxR) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = group_lanes(r);
@@ -809,6 +997,21 @@ int celerite_forward_geometry(int b, int r, int* out) {
   out[3] = kForwardWarps * kWarp;
   out[4] = step_tile(r);
   return 0;
+}
+
+int celerite_adjoint_geometry(int b, int r, int* out) {
+  const int err = celerite_forward_geometry(b, r, out);
+  out[3] = kAdjointWarps * kWarp;
+  return err;
+}
+
+// G2's compiled resources at r slots in float32 (elem_size 4) or float64
+// (8): out = {local memory bytes a thread, registers a thread, dynamic
+// shared memory bytes a block}
+int celerite_adjoint_attributes(int r, int elem_size, int* out) {
+  if (elem_size == 4) return static_cast<int>(adjoint_attributes<float>(r, out));
+  if (elem_size == 8) return static_cast<int>(adjoint_attributes<double>(r, out));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int celerite_solve_geometry(int k, int* out) {

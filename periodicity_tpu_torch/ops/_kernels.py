@@ -77,7 +77,10 @@ ENTRY_POINTS = {
     "celerite_solve_f64": [_P] * 5 + [_I] * 3 + [_P] * 2,
     # b, r, int[5] out; k, int[4] out: the launch geometry the kernels use
     "celerite_forward_geometry": [_I] * 2 + [_P],
+    "celerite_adjoint_geometry": [_I] * 2 + [_P],
     "celerite_solve_geometry": [_I] + [_P],
+    # r, element size, int[3] out: G2's local memory, registers, shared memory
+    "celerite_adjoint_attributes": [_I] * 2 + [_P],
     # A, Q, H, diag, y, carry_in, b, n, r, n_blocks, summ, excl, mu, s, carry_out, stream
     "kalman_blocked_f32": [_P] * 6 + [_I] * 4 + [_P] * 6,
     "kalman_blocked_f64": [_P] * 6 + [_I] * 4 + [_P] * 6,

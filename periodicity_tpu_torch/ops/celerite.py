@@ -8,8 +8,9 @@ fuses into one dispatch and differentiates with ``jax.grad``. Eager PyTorch
 would pay a handful of launches for every step of every sweep, so on a CUDA
 tensor each recursion is one launch of a hand-written kernel
 (``csrc/celerite.cu``): G1 walks a walker on a group of lanes, lane i
-owning row i of the state; G2 walks a walker on one thread; G3 walks a
-column of the right-hand sides on one lane, the coefficients staged in
+owning row i of the state; G2 walks it back on the same lanes, lane i
+owning row i of the adjoint state and of the state it rebuilds; G3 walks
+a column of the right-hand sides on one lane, the coefficients staged in
 shared memory (:func:`kernel_geometry`). On a CPU tensor each is its
 plain version here. Both round every product, sum, difference and
 quotient on its own, in the same order, so they agree bit for bit.
@@ -218,16 +219,17 @@ def _check_r(r):
                          f"this wide runs only on CPU tensors")
 
 
-def kernel_geometry(b=None, r=None, k=None):
+def kernel_geometry(b=None, r=None, k=None, adjoint=False):
     """The launch geometry ``csrc/celerite.cu`` uses, read from the built
     library (built if it is missing). For ``b`` walkers of ``r`` slots,
-    G1's: ``lanes`` a walker (the next power of two >= R, so a group never
-    straddles a warp), ``walkers`` a block (one warp walks them, a second
-    stages their tiles), ``blocks``, ``threads`` a block and ``step_tile``,
-    the steps staged at a time. For ``k`` right-hand sides, G3's:
-    ``columns`` a block (a lane a column), ``blocks``, ``threads`` a block
-    (a warp walks the columns' recursions, four stage its tiles and divide
-    by D) and ``row_tile``, the rows staged at a time."""
+    G1's, or G2's with ``adjoint``: ``lanes`` a walker (the next power of
+    two >= R, so a group never straddles a warp), ``walkers`` a block (one
+    warp walks them; one more warp stages their tiles in G1, three in G2),
+    ``blocks``, ``threads`` a block and ``step_tile``, the steps staged at
+    a time. For ``k`` right-hand sides, G3's: ``columns`` a block (a lane a
+    column), ``blocks``, ``threads`` a block (a warp walks the columns'
+    recursions, four stage its tiles and divide by D) and ``row_tile``, the
+    rows staged at a time."""
     if k is not None:
         out = (ctypes.c_int * 4)()
         keys = ("columns", "blocks", "threads", "row_tile")
@@ -235,10 +237,25 @@ def kernel_geometry(b=None, r=None, k=None):
     else:
         out = (ctypes.c_int * 5)()
         keys = ("lanes", "walkers", "blocks", "threads", "step_tile")
-        err = load().celerite_forward_geometry(b, r, out)
+        lib = load()
+        err = (lib.celerite_adjoint_geometry if adjoint else lib.celerite_forward_geometry)(
+            b, r, out)
     if err != 0:
         raise ValueError(f"no celerite launch for b={b}, r={r}, k={k}")
     return dict(zip(keys, out))
+
+
+def adjoint_attributes(r, dtype):
+    """G2's compiled kernel at ``r`` slots in ``dtype``, as the runtime
+    reports it on the current card: ``local_bytes`` of local memory a
+    thread, ``registers`` a thread and the dynamic ``shared_bytes`` a block
+    its launch asks for."""
+    _check_r(r)
+    out = (ctypes.c_int * 3)()
+    err = load().celerite_adjoint_attributes(r, dtype.itemsize, out)
+    if err != 0:
+        raise RuntimeError(f"celerite_adjoint_attributes failed: cudaError {err}")
+    return dict(zip(("local_bytes", "registers", "shared_bytes"), out))
 
 
 def celerite_forward(A, U, V, P, y=None, save=False, want_w=True):
@@ -281,7 +298,9 @@ celerite_forward.launches = 0
 
 def celerite_adjoint(U, P, D, W, z, S_saved, f_saved, dD, dz):
     """G2: the adjoint of G1 with y, as :func:`celerite_adjoint_plain`. On
-    a CUDA tensor one kernel launch; on a CPU tensor the plain version."""
+    a CUDA tensor one kernel launch on the current stream, on G1's lanes
+    (:func:`kernel_geometry` with ``adjoint``); on a CPU tensor the plain
+    version."""
     if _on_cpu(U):
         return celerite_adjoint_plain(U, P, D, W, z, S_saved, f_saved, dD, dz)
     b, n, r = U.shape

@@ -4,15 +4,19 @@ G1 (``csrc/celerite.cu::celerite_forward_kernel``) walks a walker on a
 group of G lanes, G the next power of two >= R: lane i owns row i of the
 state S in full and its own u_i, v_i, p_i, W_i and f_i; lanes past R repeat
 row R - 1. The sums across rows (u . Su for D, u . f for z) are taken by
-every lane from the other lanes' products in the plain order. G3
+every lane from the other lanes' products in the plain order. G2
+(``celerite_adjoint_kernel``) walks it back on the same lanes, in tiles of
+steps going down in t: lane i owns row i of the adjoint state G and of the
+rebuilt S~ and S_t, the sums within a row stay on the lane, and the three
+across rows come from the other lanes' products. G3
 (``celerite_solve_kernel``) walks a column on one lane, row by row in tiles,
 each row's update touching that row's coefficients only, and P's missing
-row n - 1 read as zeros. Numpy replays both, one operation at a time in the
-kernels' order (numpy rounds every operation on its own, as ``__*_rn``
-do), and the replays must equal the plain versions bit for bit: R = 1..8,
-float32 and float64, with and without y and the saved state, one sample,
-one step, a row whose D goes non-positive, tiles cut at every edge. These
-tests check the designs' operation order, not the kernels: no line of
+row n - 1 read as zeros. Numpy replays all three, one operation at a time
+in the kernels' order (numpy rounds every operation on its own, as
+``__*_rn`` do), and the replays must equal the plain versions bit for bit:
+R = 1..8, float32 and float64, with and without y and the saved state, one
+sample, one step, a row whose D goes non-positive, tiles cut at every edge.
+These tests check the designs' operation order, not the kernels: no line of
 ``csrc/celerite.cu`` runs here. The kernels themselves are held against
 the plain versions bit for bit on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py`` phase 27).
@@ -95,6 +99,96 @@ def _lanes_forward(A, U, V, P, y, save):
     return D, W, z, S_saved, f_saved
 
 
+def _rows_sum(x, r):
+    """Every lane's sum of x [b, G] over lanes 0 .. R - 1, left to right."""
+    acc = x[:, 0]
+    for j in range(1, r):
+        acc = acc + x[:, j]
+    return acc
+
+
+def _row_dot(a, b, r):
+    """Each lane's sum over j of a[:, lane, j] * b[:, j], left to right."""
+    acc = a[:, :, 0] * b[:, None, 0]
+    for j in range(1, r):
+        acc = acc + a[:, :, j] * b[:, None, j]
+    return acc
+
+
+def _lanes_adjoint(U, P, D, W, z, S_saved, f_saved, dD, dz):
+    """G2 lane by lane: [b, G] arrays hold each lane's scalars, [b, G, R]
+    each lane's row of G, S~ and S_t. The steps go down in t in tiles of 16
+    (8 at R <= 2) staged as the kernel stages them: step t at k = t - t_lo,
+    W and D from row t_lo - 1, S_saved unpacked into full rows. Returns what
+    the plain version returns."""
+    b, n, r = U.shape
+    g = 1 << (r - 1).bit_length()
+    ir = np.minimum(np.arange(g), r - 1)
+    ts = 16 if r > 2 else 8
+    _, _, full = C._unpack_index(r)
+    half = U.dtype.type(0.5)
+    dA, dy = np.empty_like(D), np.empty_like(D)
+    dU, dV, dP = np.empty_like(U), np.empty_like(U), np.empty_like(P)
+    G = np.zeros((b, g, r), U.dtype)
+    wb = np.zeros((b, g), U.dtype)
+    fb = np.zeros((b, g), U.dtype)
+    db, zb = dD[:, n - 1], dz[:, n - 1]
+    for m in range(-(-(n - 1) // ts)):
+        t_hi = n - 1 - m * ts
+        cnt = min(ts, t_hi)
+        t_lo = t_hi - cnt + 1
+        rows = slice(t_lo - 1, t_lo - 1 + cnt)  # the rows t - 1 of the tile's steps
+        tU, tP, tF = U[:, t_lo:t_hi + 1], P[:, rows], f_saved[:, rows]
+        tW, tD = W[:, t_lo - 1:t_hi + 1], D[:, t_lo - 1:t_hi + 1]
+        tZ, tDD, tDZ = z[:, rows], dD[:, rows], dz[:, rows]
+        tS = S_saved[:, rows][:, :, full]
+        oU, oV, oP = (np.empty((b, cnt, r), U.dtype) for _ in range(3))
+        oY, oA = np.empty((b, cnt), U.dtype), np.empty((b, cnt), U.dtype)
+        for k in range(cnt - 1, -1, -1):
+            u, p, wp = tU[:, k], tP[:, k], tW[:, k]
+            ui, pi, wpi, wi = u[:, ir], p[:, ir], wp[:, ir], tW[:, k + 1][:, ir]
+            d_prev, d, z_prev = tD[:, k], tD[:, k + 1], tZ[:, k]
+            st = tS[:, k][:, ir] + d_prev[:, None, None] * (wpi[:, :, None] * wp[:, None, :])
+            sn = (pi[:, :, None] * p[:, None, :]) * st
+            su = _row_dot(sn, u, r)
+            ft = tF[:, k][:, ir] + wpi * z_prev[:, None]
+            oY[:, k] = zb
+            nzb = -zb
+            ub = nzb[:, None] * (pi * ft)
+            fb = fb + nzb[:, None] * ui
+            pb = fb * ft
+            ftb = fb * pi
+            wb_prev = ftb * z_prev[:, None]
+            zb_prev = tDZ[:, k] + _rows_sum(ftb * wpi, r)
+            vb = wb / d[:, None]
+            oV[:, k] = vb[:, :r]
+            db = db - _rows_sum(wb * wi, r) / d
+            oA[:, k] = db
+            ub = ub - db[:, None] * su
+            sub = -vb - db[:, None] * ui
+            sj = sub[:, :r]  # sub of lanes 0 .. R - 1, to every lane
+            oU[:, k] = (ub + _row_dot(sn, sj, r))[:, :r]
+            G = G + (sub[:, :, None] * u[:, None, :] + ui[:, :, None] * sj[:, None, :]) * half
+            rp = _row_dot(G * st, p, r)
+            oP[:, k] = (pb + (rp + rp))[:, :r]
+            G = G * (pi[:, :, None] * p[:, None, :])
+            q = _row_dot(G, wp, r)
+            db = tDD[:, k] + _rows_sum(wpi * q, r)
+            wb = wb_prev + d_prev[:, None] * (q + q)
+            fb, zb = ftb, zb_prev
+            # a lane past R holds what lane R - 1 holds
+            assert _bits(G[:, r - 1:], np.broadcast_to(G[:, r - 1:r], G[:, r - 1:].shape))
+            assert _bits(wb[:, r - 1:], np.broadcast_to(wb[:, r - 1:r], wb[:, r - 1:].shape))
+        dU[:, t_lo:t_hi + 1], dV[:, t_lo:t_hi + 1], dP[:, rows] = oU, oV, oP
+        dy[:, t_lo:t_hi + 1], dA[:, t_lo:t_hi + 1] = oY, oA
+    # t = 0
+    dy[:, 0] = zb
+    dV[:, 0] = (wb / D[:, 0, None])[:, :r]
+    dA[:, 0] = db - _rows_sum(wb * W[:, 0][:, ir], r) / D[:, 0]
+    dU[:, 0] = 0
+    return dA, dU, dV, dP, dy
+
+
 def _tiled_solve(U, P, D, W, Y, tile):
     """G3 row by row, in tiles of ``tile`` rows, forward then backward with
     the tiles in reverse; P's row n - 1 reads as zeros."""
@@ -168,3 +262,25 @@ def test_g3_row_local_tiled_walk_is_the_plain_order(r, dtype):
     want = C.celerite_solve_plain(torch.from_numpy(U[0]), torch.from_numpy(P[0]), D[0], W[0],
                                   torch.from_numpy(Y)).numpy()
     assert _bits(got, want) and np.signbit(got[0, 0]) == np.signbit(want[0, 0])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r", range(1, C.MAX_R + 1))
+@pytest.mark.parametrize("n", [1, 2, 17, 300])
+def test_g2_lane_order_is_the_plain_order(n, r, dtype):
+    # 5 walkers; one sample (no step), one step, 16 steps (one full tile of
+    # 16, two of 8), and 299 steps ending in a partial tile, with a row
+    # whose D goes non-positive (NaN for NaN)
+    A, U, V, P, y = _draw(5, n, r, dtype, 300 * n + r)
+    if n > 40:
+        A[1, 40] = -1.0
+    fwd = C.celerite_forward_plain(*(torch.from_numpy(x) for x in (A, U, V, P, y)), save=True)
+    rng = np.random.default_rng(n + r)
+    dD, dz = (torch.from_numpy(rng.standard_normal((5, n)).astype(dtype)) for _ in range(2))
+    args = (torch.from_numpy(U), torch.from_numpy(P), *fwd, dD, dz)
+    want = C.celerite_adjoint_plain(*args)
+    got = _lanes_adjoint(*(x.numpy() for x in args))
+    for name, a, w in zip(("dA", "dU", "dV", "dP", "dy"), got, want):
+        assert _bits(a, w.numpy()), name
+    if n > 40:
+        assert (fwd[0][1, 40:] <= 0).any() or torch.isnan(fwd[0][1, 40:]).any()

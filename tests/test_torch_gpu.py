@@ -981,27 +981,76 @@ def test_celerite_kernels_match_plain_bit_for_bit(cuda, dtype, r, b, n):
                      C.celerite_solve_plain(U[row], P[row], D[row], W[row], Y)), k
 
 
+def _same_bits(a, b):
+    """a and b hold the same bit patterns, signed zeros included; NaN where
+    the other is NaN."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a.view(view)[~nan],
+                                                           b.view(view)[~nan])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", range(2, 9))
+def test_celerite_adjoint_masked_slots_match_plain_bit_for_bit(cuda, dtype, r):
+    """A masked term's slots are zero columns of U and V, so their W and
+    W-bar stay 0 and G2 divides 0 by D at every step (outside the
+    division's slow path): the same bit patterns as the plain version,
+    signed zeros included."""
+    from periodicity_tpu_torch.ops import celerite as C
+
+    A, U, V, P, y = _celerite_draw(5, 300, r, dtype, cuda, 77 + r)
+    masked = [r - 1] + ([1] if r >= 4 else [])
+    U[..., masked] = 0
+    V[..., masked] = 0
+    A[0, 40] = -1.0  # a row whose D goes non-positive
+    D, W, z, S_saved, f_saved = C.celerite_forward(A, U, V, P, y, save=True)
+    assert bool((W[..., masked] == 0).all())
+    rng = np.random.default_rng(r)
+    dD, dz = (torch.from_numpy(rng.standard_normal((5, 300))).to(cuda, dtype) for _ in range(2))
+    for a, w in zip(C.celerite_adjoint(U, P, D, W, z, S_saved, f_saved, dD, dz),
+                    C.celerite_adjoint_plain(U, P, D, W, z, S_saved, f_saved, dD, dz)):
+        assert _same_bits(a, w)
+
+
 def test_celerite_launch_geometry(cuda):
     from periodicity_tpu_torch.ops import celerite as C
 
     for r in range(1, C.MAX_R + 1):
         for b in (1, 3, 4, 5, 8, 33, 64, 65):
-            g = C.kernel_geometry(b=b, r=r)
-            # a group is a power of two >= R lanes inside a warp; every
-            # walker has a block and no block is empty
-            lanes, walkers, blocks = g["lanes"], g["walkers"], g["blocks"]
-            assert lanes & (lanes - 1) == 0 and r <= lanes < 2 * r or lanes == r == 1
-            assert lanes * walkers == 32 and (blocks - 1) * walkers < b <= blocks * walkers
+            for adjoint in (False, True):
+                g = C.kernel_geometry(b=b, r=r, adjoint=adjoint)
+                # G1's and G2's groups: a power of two >= R lanes inside a
+                # warp; every walker has a block and no block is empty
+                lanes, walkers, blocks = g["lanes"], g["walkers"], g["blocks"]
+                assert lanes & (lanes - 1) == 0 and r <= lanes < 2 * r or lanes == r == 1
+                assert lanes * walkers == 32 and (blocks - 1) * walkers < b <= blocks * walkers
     for k in (1, 3, 31, 32, 33, 64, 65, 2148):
         g = C.kernel_geometry(k=k)
         assert 32 <= g["columns"] <= 64
         assert (g["blocks"] - 1) * g["columns"] < k <= g["blocks"] * g["columns"]
-    # config 5's 64 walkers (R = 6) cover at least 16 SMs, loocv's 2148
-    # right-hand sides at least 34
+    # config 5's 64 walkers (R = 6) cover at least 16 SMs in G1 and G2,
+    # loocv's 2148 right-hand sides at least 34
     assert C.kernel_geometry(b=64, r=6)["blocks"] >= 16
+    assert C.kernel_geometry(b=64, r=6, adjoint=True)["blocks"] >= 16
     assert C.kernel_geometry(k=2148)["blocks"] >= 34
     with pytest.raises(ValueError):
         C.kernel_geometry(b=1, r=C.MAX_R + 1)
+    with pytest.raises(ValueError):
+        C.kernel_geometry(b=1, r=C.MAX_R + 1, adjoint=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", range(1, 9))
+def test_celerite_adjoint_uses_no_local_memory(cuda, r, dtype):
+    """G2 keeps its rows in registers: every instantiation compiles to 0
+    bytes of local memory, and its shared tiles fit a Hopper block."""
+    from periodicity_tpu_torch.ops import celerite as C
+
+    a = C.adjoint_attributes(r, dtype)
+    assert a["local_bytes"] == 0, a
+    assert 0 < a["registers"] <= 255 and 0 < a["shared_bytes"] <= 227 * 1024, a
 
 
 def test_one_celerite_launch_per_call_and_factor_without_rhs(cuda):
