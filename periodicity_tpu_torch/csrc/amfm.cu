@@ -23,21 +23,22 @@
 // torch.clamp), passes [R] (the passes each row ran).
 //
 // What bounds it. A row is a chain of at most n_iter dependent passes, and
-// each pass is a chain of dependent block-wide steps: two block scans, the
-// knots, the rows, ceil(log2 K) PCR levels, the Hermite evaluation, the
-// division and one max reduction. Bytes are few (X and t in, A and F out,
-// once). So the longest row's chain bounds the launch.
+// each pass is a chain of dependent block-wide steps: the extrema's scans,
+// the knots, the solve (ceil(log2 cnt) PCR levels over the cnt valid
+// knots), the Hermite evaluation, the division and one max reduction.
+// Bytes are few (X and t in, A and F out, once). So the longest row's
+// chain bounds the launch.
 //
 // What the design does about it. One thread block per row, 512 threads,
-// with the row's F, A, |F|, scan keys, flags and one envelope's knots and
-// double-buffered rows in dynamic shared memory (84 KB at N = 2048 in
-// float32, 147 KB in float64), or in global scratch where they do not fit
-// (float64 above N ~ 3000), through the same code. The envelope stages are
-// S1's (envelope.cuh), built for one envelope. Rows retire on their own (a
-// finished block exits), and no host read happens inside the loop. The max
-// is exact in any order, so the stop flag is the same bit as the plain
-// version's. At config 9 (R = 4 mode slots x B members = 32-256 rows) that
-// is at most two waves of blocks on 132 SMs.
+// with the row's F, A, |F|, the extrema's round masks and one envelope's
+// knots and double-buffered rows in dynamic shared memory (65 KB at
+// N = 2048 in float32, 130 KB in float64), or in global scratch where they
+// do not fit (float64 above N ~ 3600), through the same code. The envelope
+// stages are S1's (envelope.cuh), built for one envelope. Rows retire on
+// their own (a finished block exits), and no host read happens inside the
+// loop. The max is exact in any order, so the stop flag is the same bit as
+// the plain version's. At config 9 (R = 4 mode slots x B members = 32-256
+// rows) that is at most two waves of blocks on 132 SMs.
 //
 // Every floating-point operation is rounded on its own (rn.cuh) in the
 // plain version's order, so kernel and plain version agree bit for bit.
@@ -55,12 +56,11 @@ using namespace envelope;
 // One row's working arrays, carved from one byte range.
 template <typename T>
 struct Row {
-  T* F;                  // [n] the FM part
-  T* A;                  // [n] the AM part
-  T* x;                  // [n] |F| of this pass
-  long long* keys;       // [n] block-scan values
-  unsigned char* flags;  // [n] extrema flags (bit 0: a maximum of |F|)
-  Knots<T, 1> kn;        // the envelope's knots and rows
+  T* F;            // [n] the FM part
+  T* A;            // [n] the AM part
+  T* x;            // [n] |F| of this pass
+  Rounds<1> rd;    // the maxima of |F|, round by round
+  Knots<T, 1> kn;  // the envelope's knots and rows
 };
 
 template <typename T>
@@ -69,8 +69,7 @@ __host__ __device__ size_t carve(int n, int k, char* base, Row<T>& w) {
   w.F = c.take<T>(n);
   w.A = c.take<T>(n);
   w.x = c.take<T>(n);
-  w.keys = c.take<long long>(n);
-  w.flags = c.take<unsigned char>(n);
+  carve_rounds(c, n, w.rd);
   carve_knots(c, k, w.kn);
   return c.off;
 }
@@ -103,10 +102,13 @@ amfm_kernel(const T* __restrict__ t, const T* __restrict__ X, int n, int n_iter,
             char* scratch, size_t row_bytes) {
   using R = Rn<T>;
   extern __shared__ __align__(16) char smem[];
-  __shared__ long long sh[kWarps];
   __shared__ T shm[kWarps];
+  __shared__ WarpTotals wt;
   const int r = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int nr = rounds(n);
+  const int r0 = (tid >> 5) * nr;
   const int w = pad_width;
   const int k = capacity(n, w);
   Row<T> W;
@@ -124,15 +126,15 @@ amfm_kernel(const T* __restrict__ t, const T* __restrict__ X, int n, int n_iter,
     for (int i = tid; i < n; i += kThreads) W.x[i] = fabs(W.F[i]);
     __syncthreads();
     // 1-2. the maxima of |F| and their running counts
-    const long long total = extrema(W.x, n, W.keys, W.flags, sh);
-    const int n_int[1] = {field(total, 0)};
-    const int cnt[1] = {n_int[0] + 2 * w};
-    const bool ok = n_int[0] >= max(w, 1) && cnt[0] >= 4;
+    const Extrema<1> ex = extrema(W.x, n, W.rd, wt);
+    const int n_int = ex.count[0];
+    const int cnt[1] = {n_int + 2 * w};
+    const bool ok = n_int >= max(w, 1) && cnt[0] >= 4;
     const T* sd[1] = {nullptr};
     T flat = T(0);
     if (ok) {
       // 3-5. the padded knots, the system and the knots' derivatives
-      place_knots(t, W.x, n, w, n_int, W.keys, W.flags, W.kn);
+      place_knots(t, W.x, n, w, W.rd, ex, W.kn);
       solve_derivatives(cnt, k, W.kn, sd);
     } else {
       // the constant envelope max|F|
@@ -142,11 +144,13 @@ amfm_kernel(const T* __restrict__ t, const T* __restrict__ X, int n, int n_iter,
     }
     // 6. the envelope at every sample, the division, the new max|F|
     T m = T(0);
-    for (int i = tid; i < n; i += kThreads) {
-      const T env = ok ? hermite(W.kn.pt[0], W.kn.pv[0], sd[0], w + field(W.keys[i], 0), cnt[0],
-                                 t[i])
+    for (int q = r0; q < r0 + nr; ++q) {
+      const int i = 32 * q + lane;
+      if (i >= n) break;
+      const T env = ok ? hermite(W.kn.pt(0), W.kn.pv(0), sd[0], w + count_at(W.rd, ex, 0, q, lane),
+                                 cnt[0], t[i])
                        : flat;
-      const T f = R::div(W.F[i], env);
+      const T f = quot(W.F[i], env);
       W.F[i] = f;
       W.A[i] = R::mul(W.A[i], env);
       m = max_nan(m, fabs(f));

@@ -33,23 +33,28 @@
 //
 // What bounds it. A member is a chain of dependent sifts, hundreds to
 // thousands of them, and each sift is a chain of dependent block-wide
-// steps: two block scans, the knot scatter, the rows, ceil(log2 K) PCR
-// levels (a division and 4 dependent operations each), the Hermite
-// evaluation and two reductions. Bytes are few (the series in and the
-// modes out, once). So the longest member's chain of dependent operations
-// bounds the launch, not the bytes.
+// steps: the extrema's scans, the knot scatter, the two envelopes' solves
+// (ceil(log2 cnt) PCR levels over the cnt valid knots, a division and 4
+// dependent operations each), the Hermite evaluation and a reduction.
+// Bytes are few (the series in and the modes out, once). So the longest
+// member's chain of dependent operations bounds the launch, not the bytes.
 //
 // What the design does about it. One thread block per member, 512
 // threads, with the member's working arrays in dynamic shared memory: the
 // whole chain runs with no global memory traffic and no host involvement,
 // and members retire on their own (a block that is done exits), so the
-// launch is the lane-retiring pool. Every block-wide step is one barrier or
-// two. Where the arrays do not fit in the block's shared memory (float64 at
-// N = 2048, 229 KB), they live in global scratch that the wrapper
-// allocates, through the same code; they then stay in L2. With fewer
-// members than SMs (config 10: 50 members on 132 SMs) most of the card
-// idles: splitting a member over a cluster of blocks is the first thing a
-// redesign looks at.
+// launch is the lane-retiring pool. The extrema's scans are ballots and
+// population counts a warp, three barriers a sift; each envelope's system
+// is solved on its valid knots only, by one warp in registers where both
+// have at most 64 (most sifts past a member's first mode), else by a group
+// of warps an envelope; every floating-point division takes its fast path
+// without a branch where the result is known to be the correctly rounded
+// one. Where the arrays do not fit in the block's shared memory (float64
+// above N ~ 2200; 211 KB at N = 2048), they live in global scratch that
+// the wrapper allocates, through the same code; they then stay in L2.
+// With fewer members than SMs most of the card idles, but a cluster
+// barrier costs ~1200 cycles against ~45 for a block barrier on an H100,
+// more than the N-wide stages it would spread save.
 //
 // The envelope stages (extrema, knots, the spline solve, the Hermite
 // evaluation) live in envelope.cuh, which the AM/FM normalization kernel
@@ -76,12 +81,11 @@ using namespace envelope;
 // One member's working arrays, carved from one byte range.
 template <typename T>
 struct Work {
-  T* cur;                // [n] the series being sifted
-  T* res;                // [n] the residue
-  T* mu;                 // [n] the envelope mean of this sift
-  long long* keys;       // [n] block-scan values
-  unsigned char* flags;  // [n] bit 0 upper extremum, 1 lower, 2 zero crossing
-  Knots<T, 2> kn;        // the upper and lower envelope's knots and rows
+  T* cur;          // [n] the series being sifted
+  T* res;          // [n] the residue
+  T* mu;           // [n] the envelope mean of this sift
+  Rounds<2> rd;    // the extrema of cur and of -cur, round by round
+  Knots<T, 2> kn;  // the upper and lower envelope's knots and rows
 };
 
 // Points w's arrays into the byte range at base; returns its size in bytes.
@@ -91,8 +95,7 @@ __host__ __device__ size_t carve(int n, int k, char* base, Work<T>& w) {
   w.cur = c.take<T>(n);
   w.res = c.take<T>(n);
   w.mu = c.take<T>(n);
-  w.keys = c.take<long long>(n);
-  w.flags = c.take<unsigned char>(n);
+  carve_rounds(c, n, w.rd);
   carve_knots(c, k, w.kn);
   return c.off;
 }
@@ -107,8 +110,12 @@ emd_sift_kernel(const T* __restrict__ t, const T* __restrict__ Y, int n, int max
   using R = Rn<T>;
   extern __shared__ __align__(16) char smem[];
   __shared__ long long sh[kWarps];
+  __shared__ WarpTotals wt;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int nr = rounds(n);
+  const int r0 = (tid >> 5) * nr;
   const int w = pad_width;
   const int k = capacity(n, w);
   Work<T> W;
@@ -125,29 +132,31 @@ emd_sift_kernel(const T* __restrict__ t, const T* __restrict__ Y, int n, int max
   while (!done) {
     // 1-2. the maxima of cur and of -cur, the zero crossings and their
     //      running counts
-    const long long total = extrema(W.cur, n, W.keys, W.flags, sh);
-    const int n_int[2] = {field(total, 0), field(total, 1)};
-    const int n_zero = field(total, 2);
+    const Extrema<2> ex = extrema(W.cur, n, W.rd, wt);
+    const int n_int[2] = {ex.count[0], ex.count[1]};
     const int cnt[2] = {n_int[0] + 2 * w, n_int[1] + 2 * w};
     const bool ok = n_int[0] >= w && n_int[1] >= w && cnt[0] >= 4 && cnt[1] >= 4;
 
     bool is_imf = false;
     if (ok) {
       // 3-5. the padded knots, the two systems and the knots' derivatives
-      place_knots(t, W.cur, n, w, n_int, W.keys, W.flags, W.kn);
+      place_knots(t, W.cur, n, w, W.rd, ex, W.kn);
       const T* sd[2];
       solve_derivatives(cnt, k, W.kn, sd);
       // 6. the envelopes at every sample (ops/spline.py::spline_eval with
       //    hi = pad_width + #extrema <= i), mu and sigma, and the counts
       long long gt = 0, not_lt = 0;
-      for (int i = tid; i < n; i += kThreads) {
-        const long long cs = W.keys[i];
+      for (int r = r0; r < r0 + nr; ++r) {
+        const int i = 32 * r + lane;
+        if (i >= n) break;
         const T ti = t[i];
-        const T upper = hermite(W.kn.pt[0], W.kn.pv[0], sd[0], w + field(cs, 0), cnt[0], ti);
-        const T lower = -hermite(W.kn.pt[1], W.kn.pv[1], sd[1], w + field(cs, 1), cnt[1], ti);
+        const T upper = hermite(W.kn.pt(0), W.kn.pv(0), sd[0], w + count_at(W.rd, ex, 0, r, lane),
+                                cnt[0], ti);
+        const T lower = -hermite(W.kn.pt(1), W.kn.pv(1), sd[1],
+                                 w + count_at(W.rd, ex, 1, r, lane), cnt[1], ti);
         const T mu = R::mul(R::add(upper, lower), T(0.5));
         const T amp = R::mul(R::sub(upper, lower), T(0.5));
-        const T sigma = fabs(R::div(mu, amp));
+        const T sigma = fabs(quot(mu, amp));
         W.mu[i] = mu;
         gt += sigma > theta_1 ? 1 : 0;
         not_lt += sigma < theta_2 ? 0 : 1;
@@ -155,7 +164,7 @@ emd_sift_kernel(const T* __restrict__ t, const T* __restrict__ Y, int n, int max
       const long long counts = block_sum(gt | (not_lt << 32), sh);
       const int n_gt = static_cast<int>(counts & 0xffffffffll);
       const int n_not_lt = static_cast<int>(counts >> 32);
-      const int gap = n_zero - (n_int[0] + n_int[1]);
+      const int gap = ex.zero - (n_int[0] + n_int[1]);
       is_imf = n_gt < imf_limit && n_not_lt == 0 && gap <= 1 && gap >= -1;
     }
 
@@ -233,9 +242,53 @@ cudaError_t emd_sift(const T* t, const T* Y, int n, int b, int max_modes, int ma
   return cudaGetLastError();
 }
 
+// envelope.cuh::quot in float32 against __fdiv_rn on n operand pairs, to
+// the bit pattern: mode 0 hashed bit patterns, 1 the same inside quot's
+// exponent window, 2 zero numerators, 3 and 4 every divisor of the window
+// (n = 121 2^23) over the numerators 1 and 1.75. out[0] gets the pairs
+// that differ, out[1] those on the fast path.
+__device__ unsigned long long mix(unsigned long long z) {
+  z += 0x9e3779b97f4a7c15ull;
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
+  return z ^ (z >> 31);
+}
+
+__global__ void quot_check_kernel(unsigned long long n, int mode, unsigned long long* out) {
+  unsigned long long bad = 0, fast = 0;
+  const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * blockDim.x;
+  for (unsigned long long i = blockIdx.x * static_cast<unsigned long long>(blockDim.x) + threadIdx.x;
+       i < n; i += stride) {
+    const unsigned long long h = mix(i * 8 + mode);
+    unsigned ua = static_cast<unsigned>(h), ud = static_cast<unsigned>(h >> 32);
+    if (mode == 1) {
+      ua = (ua & 0x807fffffu) | (((ua >> 23) & 0xffu) % 121u + 67u) << 23;
+      ud = (ud & 0x807fffffu) | (((ud >> 23) & 0xffu) % 121u + 67u) << 23;
+    } else if (mode == 2) {
+      ua &= 0x80000000u;
+    } else if (mode >= 3) {
+      ua = mode == 3 ? 0x3f800000u : 0x3fe00000u;
+      ud = static_cast<unsigned>(((i >> 23) + 67u) << 23 | (i & 0x7fffffu));
+    }
+    const float a = __uint_as_float(ua), d = __uint_as_float(ud);
+    bool exact;
+    quot_fast(a, d, &exact);
+    fast += exact ? 1 : 0;
+    bad += __float_as_uint(quot(a, d)) != __float_as_uint(__fdiv_rn(a, d)) ? 1 : 0;
+  }
+  atomicAdd(out, bad);
+  atomicAdd(out + 1, fast);
+}
+
 }  // namespace
 
 extern "C" {
+
+int emd_sift_quot_check_f32(unsigned long long n, int mode, unsigned long long* out,
+                            cudaStream_t stream) {
+  quot_check_kernel<<<132 * 8, 256, 0, stream>>>(n, mode, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Global scratch bytes one member needs: 0 where its arrays fit in a
 // block's shared memory on the current device; minus a cudaError on error.

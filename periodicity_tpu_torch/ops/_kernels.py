@@ -61,6 +61,9 @@ ENTRY_POINTS = {
     "emd_sift_f64": [_P] * 2 + [_I] * 5 + [_D] * 2 + [_I] + [_P] * 7,
     # n, pad_width, element size -> global scratch bytes a member needs
     "emd_sift_scratch_bytes": [_I] * 3,
+    # pairs, mode, unsigned long long[2] out, stream: the sift's float32
+    # quotient against __fdiv_rn (a card test)
+    "emd_sift_quot_check_f32": [ctypes.c_ulonglong, _I, _P, _P],
     # t, X, n, rows, n_iter, pad_width, eps, A, F, passes, scratch, stream
     "amfm_normalize_f32": [_P] * 2 + [_I] * 4 + [_D] + [_P] * 5,
     "amfm_normalize_f64": [_P] * 2 + [_I] * 4 + [_D] + [_P] * 5,

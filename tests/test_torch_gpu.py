@@ -669,10 +669,23 @@ def _sift_case(case, dtype, device):
     rng = np.random.default_rng(17)
     tt = np.arange(200.0)
     wavy = np.sin(tt[None] / np.array([[4.0], [7.0]])) + 0.3 * rng.standard_normal((2, 200))
+    t600 = np.arange(600.0)
+    tones = {f"tone{m}": (t600, np.stack([np.sin(2 * np.pi * m * t600 / 600 + 0.3),
+                                          np.sin(2 * np.pi * m * t600 / 600 + 0.3)
+                                          + 0.2 * np.sin(2 * np.pi * (m + 1) * t600 / 600 + 1.1)]),
+                          {"max_modes": 2})
+             for m in (28, 29, 59, 60, 61, 62)}
     t, Y, kw = {
-        # float64 at N = 2048 needs 229 KB a member: above the block's
-        # shared memory, so it runs in global scratch
+        # float64 at N = 2048 fits a block's shared memory (215 KB a
+        # member); at N = 2400 (266 KB) it runs in global scratch
         "n2048": (np.arange(2048.0), rng.standard_normal((3, 2048)), {"max_modes": 4}),
+        "n2400": (np.arange(2400.0), rng.standard_normal((2, 2400)), {"max_modes": 2}),
+        # m maxima and minima: envelopes of m + 4 valid knots, at and around
+        # the warp-resident solve's 32 rows a register and 64 a warp
+        **tones,
+        # an alternating series: counts near the capacity
+        "alternating": (t600, np.stack([(-1.0) ** t600 * (1 + 0.01 * rng.standard_normal(600)),
+                                        (-1.0) ** t600 + 0.3 * np.sin(t600 / 9)]), {}),
         "config10": (np.arange(1024.0), rng.standard_normal((8, 1024)), {"max_modes": 12}),
         "short": (np.arange(3.0), np.ones((2, 3)), {}),
         "ramp": (tt, np.stack([np.linspace(0, 1, 200), np.linspace(0, 1, 200) ** 2]), {}),
@@ -688,19 +701,22 @@ def _sift_case(case, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("case", ["n2048", "config10", "short", "ramp", "plateau", "pad1", "pad3",
-                                  "max_iter", "thomas"])
+@pytest.mark.parametrize("case", ["n2048", "n2400", "config10", "short", "ramp", "plateau", "pad1",
+                                  "pad3", "max_iter", "thomas", "tone28", "tone29", "tone59",
+                                  "tone60", "tone61", "tone62", "alternating"])
 def test_sift_kernel_matches_plain_bit_for_bit(cuda, dtype, case):
     from periodicity_tpu_torch.ops import emd
 
     t, Y, kw = _sift_case(case, dtype, cuda)
+    if case == "n2400" and dtype == torch.float64:
+        assert _kernels.load().emd_sift_scratch_bytes(2400, 2, 8) > 0  # global scratch
     before = emd.sift_machine.launches
     got = emd.sift_machine(t, Y, **kw)
     assert emd.sift_machine.launches == before + 1
     want = emd.sift_machine_plain(t, Y, **kw)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
-        assert torch.equal(a, b)
+        assert _same_bits(a, b)
 
 
 def test_one_sift_launch_per_batch_call(cuda):
@@ -742,6 +758,20 @@ def test_sift_kernel_raises_and_never_falls_back(cuda, monkeypatch):
     monkeypatch.setattr(_kernels, "load", lambda: Failing())
     with pytest.raises(RuntimeError, match="launch failed"):
         emd.emd_pool(t, Y, max_modes=2)
+
+
+def test_sift_quotient_is_fdiv_rn(cuda):
+    """The envelope stages' float32 division (csrc/envelope.cuh::quot, a
+    branch-free fast path inside an exponent window) gives __fdiv_rn's bit
+    pattern: hashed pairs anywhere and inside the window, zero numerators,
+    and every divisor of the window over the numerators 1 and 1.75."""
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for mode, n in ((0, 1 << 30), (1, 1 << 30), (2, 1 << 28), (3, 121 << 23), (4, 121 << 23)):
+        out = torch.zeros(2, dtype=torch.int64, device=cuda)
+        assert lib.emd_sift_quot_check_f32(n, mode, out.data_ptr(), stream) == 0
+        bad, fast = out.tolist()
+        assert bad == 0 and fast > n // 8, (mode, bad, fast)
 
 
 def test_ceemdan_reference_thresholds_on_card(cuda):
@@ -807,6 +837,7 @@ def _amfm_case(case, dtype, device):
     tones = np.stack([env * np.sin(2 * np.pi * 0.5 * t),
                       np.sin(2 * np.pi * 0.13 * t) * (1 + 0.5 * np.cos(t / 9)),
                       np.round(3 * np.sin(t / 2.0)) + 0.1 * rng.standard_normal(t.size)])
+    t500 = np.arange(500.0)
     t9 = np.linspace(0.0, 20.0, 2048)
     am9 = np.stack([(1 + 0.3 * np.sin(t9 / f)) * np.sin(2 * np.pi * f * t9)
                     for f in (2.0, 3.0, 0.4)])
@@ -825,6 +856,11 @@ def _amfm_case(case, dtype, device):
         "n_iter": (t, tones, {"n_iter": 2}),
         "thomas": (np.arange(40.0), rng.standard_normal((3, 40)), {}),
         "short": (np.arange(2.0), np.ones((2, 2)), {}),
+        # |F| of m / 2 periods has m maxima: m + 4 valid knots, at and
+        # around the warp-resident solve's 32 and 64 rows
+        **{f"tone{m}": (t500, np.stack([np.sin(np.pi * m * t500 / 500) * (1 + 0.3 * np.sin(t500 / 50)),
+                                        np.sin(np.pi * m * t500 / 500) * (1.5 + np.cos(t500 / 70))]),
+                        {}) for m in (28, 29, 60, 61, 62)},
     }[case]
     return (torch.from_numpy(t).to(device, dtype),
             torch.from_numpy(np.ascontiguousarray(X)).to(device, dtype), kw)
@@ -832,7 +868,8 @@ def _amfm_case(case, dtype, device):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", ["n2048", "n4096", "edges", "pad1", "pad3", "pad0", "n_iter",
-                                  "thomas", "short"])
+                                  "thomas", "short", "tone28", "tone29", "tone60", "tone61",
+                                  "tone62"])
 def test_amfm_kernel_matches_plain_bit_for_bit(cuda, dtype, case):
     from periodicity_tpu_torch.ops import hht
 
@@ -843,7 +880,7 @@ def test_amfm_kernel_matches_plain_bit_for_bit(cuda, dtype, case):
     want = hht.am_fm_normalize_plain(t, X, "spline", **kw)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
-        assert torch.equal(a, b)
+        assert _same_bits(a, b)
 
 
 def test_one_amfm_launch_per_call(cuda):
