@@ -152,8 +152,10 @@ kernels, and checks every phase:
    plain version on the card, bit for bit: R = 1..8 in float32 and
    float64, from the identity and from an incoming carry, block counts that
    divide N and that do not; at config 7's blocked shapes (one row, the
-   live BrownianTerm, R = 4, f32, N = 1e4 and 1e5) its events and profiler
-   times by stage, the plain version's wall time, the chain bound and, at
+   live BrownianTerm, R = 4, f32, N = 1e4 and 1e5) and at its chunked
+   shape (65536 samples over 512 blocks, from a carry) its events and
+   profiler times by stage (elements, prefixes, the scan's levels, stitch
+   and innovations), the plain version's wall time, the chain bound and, at
    N = 1e4, one dense ``cholesky_ex`` + ``solve_triangular`` of K;
 32. config 7's solver points in f32 (scan, pscan and blocked at N = 1e4
    and 1e5, chunked at N = 1e6): ms an evaluation over k = 3 chained
@@ -3533,7 +3535,7 @@ def c7_lost_carry(term, t, diag, y, bound, n_blocks):
 
 def k1_chain_ops(r):
     """Dependent operations of one composition on its critical path, from
-    the carry's C to the next carry's C (csrc/kalman.cu::combine): the R-deep
+    the carry's C to the next carry's C (csrc/kalman.cu::compose): the R-deep
     sums of I + J C and the identity (R + 1); the elimination's R - 1
     columns, a division, a product and a difference each; the back
     substitution, a division and then R - 1 rows of a product, a difference
@@ -3760,9 +3762,53 @@ def kalman_slice(dev, card, cuda):
     out["k1_main_path_shapes_bit_equal"] = main_shapes
     print("phase 31 K1 bit-equal to plain at the main path's shapes: " + "; ".join(main_shapes))
 
-    # times at config 7's blocked shapes: events, the profiler's device time
-    # by stage, the plain version's wall time, the bound; at N = 1e4 one
-    # dense cholesky_ex + solve_triangular of the same K
+    # times at config 7's blocked shapes and at its chunked shape: events,
+    # the profiler's device time by stage, the plain version's wall time,
+    # the bound; at N = 1e4 one dense cholesky_ex + solve_triangular of the
+    # same K
+    def k1_timed(pre, A, Q, H, d, yb, nb, carry, label):
+        """K1 at one call's operands: bit-equal to plain, its events, its
+        device time by stage (elements, prefixes, the scan's levels, stitch
+        and innovations), the plain version's wall time and the bound: a
+        chain of L + ceil(log2(m + 1)) + 1 compositions, or the bytes."""
+        n, r = A.shape[1], A.shape[-1]
+        fn = lambda: K.kalman_blocked(A, Q, H, d, yb, nb, carry)  # noqa: E731
+        got = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = K.kalman_blocked_plain(A, Q, H, d, yb, nb, carry)
+        torch.cuda.synchronize()
+        rec[f"{pre}plain_ms"] = (time.perf_counter() - t0) * 1e3
+        for name, a, w in zip(("mu", "s", "A", "b", "C", "eta", "J"),
+                              (got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+            check(bit_equal(a, w), f"K1 vs plain at {label}: {name} not bit-equal")
+        rec[f"{pre}ms"] = event_ms(fn, 10)
+        work, _ = profiled(fn, reps=3)
+        geo = K.kernel_geometry(A.shape[0], n, r, nb, carry is not None, A.dtype)
+        stages = {}
+        for name, us in work:
+            if "kalman" in name:
+                stage = name.split("kalman_")[1].split("_kernel")[0]
+                stages[stage] = stages.get(stage, 0.0) + us / 3 / 1e3
+        launches = 3 + geo["tree_launches"]
+        check(sorted(stages) == ["element", "innovation", "prefix", "tree"] and sum(
+            1 for w_ in work if "kalman" in w_[0]) == 3 * launches,
+            f"K1's four stages in {launches} launches a call: {work}")
+        rec[f"{pre}device_ms"] = sum(stages.values())
+        rec[f"{pre}stage_device_ms"] = stages
+        length, m = geo["length"], geo["blocks"]
+        rec[f"{pre}bound_ms"], rec[f"{pre}bound_by"] = chain_bound(
+            A.element_size() * n * (2 * r * r + 4),
+            (length + K.tree_levels(m + 1) + 1) * k1_chain_ops(r), str(A.dtype)[6:], clock_hz)
+        rec[f"{pre}n_blocks"] = nb
+        rec[f"{pre}launches_a_call"] = launches
+        print(f"phase 31 K1 at {label}: events {rec[pre + 'ms']:.4f} ms, device "
+              f"{rec[pre + 'device_ms']:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+              + f"), plain {rec[pre + 'plain_ms']:.1f} ms, bound {rec[pre + 'bound_ms']:.4f} ms "
+              f"{rec[pre + 'bound_by']}  ({card})")
+        return got
+
     rng7 = np.random.default_rng(0)
     for n in C7_SOLVER_NS:
         pre = f"N{n}_"
@@ -3776,30 +3822,8 @@ def kalman_slice(dev, card, cuda):
             A, Q, H, d, yb = pscan._k1_inputs(coeffs, dtc, dd, yc, batch, True)
         r = H.shape[0]
         check(r == 4, f"config 7's live BrownianTerm has R = 4, got {r}")
-        fn = lambda: K.kalman_blocked(A, Q, H, d, yb, nb)  # noqa: E731
-        got = fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = K.kalman_blocked_plain(A, Q, H, d, yb, nb)
-        torch.cuda.synchronize()
-        rec[f"{pre}plain_ms"] = (time.perf_counter() - t0) * 1e3
-        for name, a, w in zip(("mu", "s"), got[:2], want[:2]):
-            check(bit_equal(a, w), f"K1 vs plain at config 7 N={n}: {name} not bit-equal")
-        rec[f"{pre}ms"] = event_ms(fn, 10)
-        work, _ = profiled(fn, reps=3)
-        stages = {}
-        for name, us in work:
-            if "kalman" in name:
-                stage = name.split("kalman_")[1].split("_kernel")[0]
-                stages[stage] = stages.get(stage, 0.0) + us / 3 / 1e3
-        check(sorted(stages) == ["carry", "innovation", "summary"] and sum(
-            1 for w_ in work if "kalman" in w_[0]) == 9, f"K1's three stages in 3 calls: {work}")
-        rec[f"{pre}device_ms"] = sum(stages.values())
-        rec[f"{pre}stage_device_ms"] = stages
-        length = -(-n // nb)
-        rec[f"{pre}bound_ms"], rec[f"{pre}bound_by"] = chain_bound(
-            4 * n * (2 * r * r + 4), (2 * length + nb) * k1_chain_ops(r), "float32", clock_hz)
-        rec[f"{pre}n_blocks"] = nb
+        got = k1_timed(pre, A, Q, H, d, yb, nb, None,
+                       f"config 7 N={n} (1 row, R=4, {nb} blocks, f32)")
         if n == C7_SOLVER_NS[0]:
             with full_float32():
                 Kd = term.get_value(tt[:, None] - tt[None, :]) + torch.diag(diag)
@@ -3816,23 +3840,35 @@ def kalman_slice(dev, card, cuda):
                 rec[f"{pre}library_info"] = int(info)
                 rec[f"{pre}library_vs_kernel_rel"] = abs(ll_lib - ll_k1) / abs(ll_k1)
             del Kd, L, z
+            print(f"phase 31 K1 at config 7 N={n}: dense cholesky_ex + solve_triangular "
+                  f"{rec[pre + 'library_ms']:.3f} ms (ll rel "
+                  f"{rec[pre + 'library_vs_kernel_rel']:.1e})  ({card})")
         else:
             rec[f"{pre}library_ms"] = None
             rec[f"{pre}library_note"] = "none (dense K does not fit: 40 GB in f32)"
-        print(f"phase 31 K1 at config 7 N={n} (1 row, R=4, {nb} blocks, f32): events "
-              f"{rec[pre + 'ms']:.4f} ms, device {rec[pre + 'device_ms']:.4f} ms ("
-              + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
-              + f"), plain {rec[pre + 'plain_ms']:.1f} ms, bound {rec[pre + 'bound_ms']:.4f} ms "
-              f"{rec[pre + 'bound_by']}"
-              + (f", dense cholesky_ex + solve_triangular {rec[pre + 'library_ms']:.3f} ms "
-                 f"(ll rel {rec[pre + 'library_vs_kernel_rel']:.1e})"
-                 if rec[pre + "library_ms"] is not None else ", no library call (dense K does "
-                 "not fit)") + f"  ({card})")
+    # config 7's chunked shape: the second chunk of the N = 1e6 series
+    # (65536 samples over 512 blocks, L = 128) from the first chunk's carry
+    t7, y7 = c7_series(np.random.default_rng(0), 2 * C7_CHUNK)
+    tt, yy = cuda(t7), cuda(y7)
+    with full_float32():
+        coeffs, tc, dd, yc, batch = pscan._prepared(term, tt, torch.full_like(tt, 0.01), yy)
+        dtc = torch.cat([tc.new_zeros(1), torch.diff(tc)])
+        A, Q, H, d, yb = pscan._k1_inputs(coeffs, dtc[:C7_CHUNK], dd[..., :C7_CHUNK],
+                                          yc[..., :C7_CHUNK], batch, True)
+        _, _, carry = K.kalman_blocked(A, Q, H, d, yb, C7_INNER)
+        A, Q, H, d, yb = pscan._k1_inputs(coeffs, dtc[C7_CHUNK:], dd[..., C7_CHUNK:],
+                                          yc[..., C7_CHUNK:], batch, False)
+    k1_timed("chunk_", A, Q, H, d, yb, C7_INNER, carry,
+             f"config 7's chunk (1 row, R=4, N={C7_CHUNK}, {C7_INNER} blocks, from a carry, "
+             "f32)")
+    rec["chunk_library_ms"] = None
+    del A, Q, d, yb, carry
     for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
         rec[key] = rec[f"N{C7_SOLVER_NS[0]}_{key}"]
     rec["shape"] = ("config 7's blocked points, one row, live BrownianTerm (R = 4), f32: "
                     "unprefixed N = 1e4 (39 blocks), also under N10000_; N100000_ N = 1e5 "
-                    "(390 blocks)")
+                    "(390 blocks); chunk_ its chunked shape (65536 samples over 512 blocks, "
+                    "from a carry)")
     t31 = time.perf_counter()
 
     solvers = {

@@ -334,7 +334,7 @@ def _positive(name, value):
 
 def log_likelihood_blocked(term, t, diag, resid, n_blocks=64):
     """GP log-likelihood [...] via the blocked two-level Kalman composition
-    (K1: depth N/n_blocks within blocks, n_blocks across them). Matches
+    (K1: depth N/n_blocks within blocks, log2(n_blocks) across them). Matches
     ``solver.log_likelihood`` for SHO-family terms; its gradient is the
     sequential solver's (see the module)."""
     n_blocks = _positive("n_blocks", n_blocks)
@@ -373,8 +373,13 @@ def log_likelihood_chunked(term, t, diag, resid, chunk=65536, inner_blocks=512):
 
 def _shard_blocks(nl):
     """K1's block count for a rank's stretch of ``nl`` samples: about
-    sqrt(2 nl), since the summary and innovation stages walk nl / nb steps
-    a thread and the carry stage walks nb."""
+    sqrt(2 nl). A K1 call is L + ceil(log2(m + 1)) + 1 compositions deep
+    (L = ceil(nl / nb) positions a block, m blocks), so more blocks shorten
+    its chain, while the scan over the block summaries costs about
+    m log2(m) compositions and a launch a level; at sqrt(2 nl) blocks that
+    scan stays well below the stretch's own nl compositions. (The count
+    dates from K1's first design, whose carry stage was an nb-deep chain;
+    no card measurement has asked for another since.)"""
     return max(1, min(nl, math.isqrt(2 * nl)))
 
 

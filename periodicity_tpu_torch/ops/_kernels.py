@@ -84,9 +84,16 @@ ENTRY_POINTS = {
     "celerite_solve_geometry": [_I] + [_P],
     # r, element size, int[3] out: G2's local memory, registers, shared memory
     "celerite_adjoint_attributes": [_I] * 2 + [_P],
-    # A, Q, H, diag, y, carry_in, b, n, r, n_blocks, summ, excl, mu, s, carry_out, stream
+    # A, Q, H, diag, y, carry_in, b, n, r, n_blocks, elems, tree, mu, s, carry_out, stream
     "kalman_blocked_f32": [_P] * 6 + [_I] * 4 + [_P] * 6,
     "kalman_blocked_f64": [_P] * 6 + [_I] * 4 + [_P] * 6,
+    # b, n, r, n_blocks, carry, element size, int[15] out: K1's launch geometry
+    "kalman_blocked_geometry": [_I] * 6 + [_P],
+    # r, element size, int[12] out: K1's four stages' local memory, registers, shared memory
+    "kalman_blocked_attributes": [_I] * 2 + [_P],
+    # pairs, mode, unsigned long long[2] out, stream: K1's float32 quotient
+    # against __fdiv_rn (a card test)
+    "kalman_quot_check_f32": [ctypes.c_ulonglong, _I, _P, _P],
 }
 
 # the celerite and Kalman kernels keep a row's state in registers for up to

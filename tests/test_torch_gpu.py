@@ -1266,13 +1266,15 @@ def test_gp_modelers_on_card_match_cpu(cuda):
 def test_kalman_kernel_matches_plain_bit_for_bit(cuda, dtype, r):
     """K1 against its plain version at R = 1..8: from the identity and from
     an incoming carry, block counts that divide N, that do not, and more
-    blocks than samples."""
+    blocks than samples (blocks past the end left out of the scan), and
+    scans of 1 to 65 leaves."""
     from chip_smoke import k1_draw
     from periodicity_tpu_torch.models.gp import pscan
     from periodicity_tpu_torch.ops import kalman as K
 
     rng = np.random.default_rng(r)
-    for b, n, nb in ((3, 257, 7), (2, 64, 8), (1, 5, 16), (2, 1, 1)):
+    for b, n, nb in ((3, 257, 7), (2, 64, 8), (1, 5, 16), (2, 1, 1), (1, 80, 39), (2, 130, 64),
+                     (1, 20, 64), (2, 300, 1)):
         coeffs, dt, A, Q, H, diag, y = k1_draw(rng, r, b, n, dtype)
         _, _, carry = K.kalman_blocked_plain(A, Q, H, diag, y, 3)
         Ac = pscan._ssm_from_dt(coeffs, dt)[0]
@@ -1284,6 +1286,73 @@ def test_kalman_kernel_matches_plain_bit_for_bit(cuda, dtype, r):
                                    None if start is None else tuple(c.to(cuda) for c in start))
             assert all(_bits(a, w) for a, w in zip((got[0], got[1], *got[2]),
                                                    (want[0], want[1], *want[2])))
+
+
+def test_kalman_launch_geometry(cuda):
+    """K1's launches as csrc/kalman.cu reports them: a group of a power of
+    two >= R lanes inside a warp; every position, chain and leaf has a
+    block and no block is empty; the scan's launches are ceil(log2) of its
+    leaves (one for a lone leaf); config 7's points."""
+    from periodicity_tpu_torch.ops import kalman as K
+
+    for dtype in (torch.float32, torch.float64):
+        for r in range(1, K.MAX_R + 1):
+            for b, n, nb in ((1, 10_000, 39), (1, 100_000, 390), (1, 65536, 512), (64, 2148, 64),
+                             (3, 5, 16), (2, 1, 1), (1, 16960, 512)):
+                for carry in (False, True):
+                    g = K.kernel_geometry(b, n, r, nb, carry, dtype)
+                    lanes = g["lanes"]
+                    assert lanes & (lanes - 1) == 0 and (r <= lanes < 2 * r or lanes == r == 1)
+                    length, m = K.block_geometry(n, nb)
+                    assert (g["length"], g["blocks"]) == (length, m)
+                    assert g["leaves"] == m + carry
+                    assert g["tree_launches"] == max(1, K.tree_levels(m + carry))
+                    per, blocks = g["element_positions"], g["element_blocks"]
+                    assert per * lanes == 128 and (blocks - 1) * per < b * n <= blocks * per
+                    per, blocks = g["prefix_chains"], g["prefix_blocks"]
+                    assert per * lanes == 32 and (blocks - 1) * per < b * m <= blocks * per
+                    assert g["prefix_threads"] == 64 and 1 <= g["step_tile"] <= 16
+                    per, blocks = g["group_items"], g["innovation_blocks"]
+                    assert per * lanes == 128 and (blocks - 1) * per < b * n <= blocks * per
+                    per, blocks = g["tree_items"], g["tree_blocks"]
+                    assert per * lanes == 64 and (blocks - 1) * per < b * (m + carry) <= (
+                        blocks * per)
+    g = K.kernel_geometry(1, 100_000, 4, 390)
+    assert (g["length"], g["blocks"], g["tree_launches"], g["prefix_blocks"]) == (257, 390, 9, 49)
+    g = K.kernel_geometry(1, 10_000, 4, 39)
+    assert (g["length"], g["blocks"], g["tree_launches"], g["prefix_blocks"]) == (257, 39, 6, 5)
+    with pytest.raises(ValueError):
+        K.kernel_geometry(1, 10, K.MAX_R + 1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", range(1, 9))
+def test_kalman_uses_no_local_memory(cuda, r, dtype):
+    """K1's four stages keep each lane's rows in registers: every
+    instantiation compiles to 0 bytes of local memory, and its shared tiles
+    fit in 48 KB of static shared memory."""
+    from periodicity_tpu_torch.ops import kalman as K
+
+    for stage, a in K.kernel_attributes(r, dtype).items():
+        assert a["local_bytes"] == 0, (stage, a)
+        assert 0 < a["registers"] <= 255 and 0 < a["shared_bytes"] <= 48 * 1024, (stage, a)
+
+
+def test_kalman_quotient_is_fdiv_rn(cuda):
+    """K1's float32 division (csrc/kalman.cu::quot: the float64 reciprocal
+    estimate, a Newton step and a correction, rounded to float32, with a
+    float64 division for subnormal quotients and special operands) gives
+    __fdiv_rn's bit pattern: hashed pairs anywhere, tiny and subnormal
+    numerators, zero numerators, quotients on subnormal rounding midpoints,
+    and both operands within 2^+-60."""
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for mode, n in ((0, 1 << 30), (1, 1 << 30), (2, 1 << 26), (3, 1 << 28), (4, 1 << 30)):
+        out = torch.zeros(2, dtype=torch.int64, device=cuda)
+        assert lib.kalman_quot_check_f32(n, mode, out.data_ptr(), stream) == 0
+        bad, fast = out.tolist()
+        assert bad == 0, (mode, bad, fast)
+        assert mode not in (1, 4) or fast > n // 2, (mode, bad, fast)
 
 
 def test_kalman_kernel_counts_raises_and_never_falls_back(cuda, monkeypatch):
