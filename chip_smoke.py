@@ -22,11 +22,12 @@ kernels, and checks every phase:
    draw; chained periodograms; the device time of one periodogram by
    kernel family with the device's idle share; the peak device memory of
    one periodogram;
-7. the phase-fold kernel agrees with its plain version at the BLS
-   benchmark shape (config 11: N = 2000, 1e5 trial periods, 2 rows of 256
-   bins), the AoV and conditional-entropy shapes, each in one launch and at
-   the chunk of periods the scans launch, and an edge draw (counts
-   bit-equal); the spreading kernel, through its unfactored entry point,
+7. the phase-fold kernel agrees with its plain version on the CPU copies
+   of its inputs, every row bit for bit, at the BLS benchmark shape (config
+   11: N = 2000, 1e5 trial periods, 2 rows of 256 bins), the AoV and
+   conditional-entropy shapes, each in one launch and at the chunk of
+   periods the scans launch, and an edge draw, and two launches agree bit
+   for bit; the spreading kernel, through its unfactored entry point,
    agrees with its plain version at N = 1e5, 2^23 cells and on a clustered
    draw;
 8. ``BLS()(TSeries(t, y))`` at config 11 on the card goes through the fold
@@ -132,7 +133,8 @@ kernels, and checks every phase:
    masked RotationTerm, R = 8; N = 2; a row whose D goes non-positive),
    G2 also at 8 walkers in float64 and config 13's 4 in float32, its
    outputs held to the bit pattern (signed zeros too), and its local
-   memory held at 0 in every instantiation (R = 1..8, both dtypes);
+   memory held at 0 up to R = 8 (both dtypes; the instantiations to
+   R = 16 printed);
    events and profiler times, the plain versions' wall times, the chain
    bounds, one dense ``torch.cholesky_solve`` of G3's system, and for G2
    autograd's backward through the batched dense Cholesky;
@@ -149,7 +151,7 @@ kernels, and checks every phase:
    is this slice's main path: the counts of G1, G2 and G3 are zeroed before
    it and each must have launched in it.
 31. the blocked Kalman composition (``csrc/kalman.cu``, K1) against its
-   plain version on the card, bit for bit: R = 1..8 in float32 and
+   plain version on the card, bit for bit: R = 1..8, 12 and 16 in float32 and
    float64, from the identity and from an incoming carry, block counts that
    divide N and that do not; at config 7's blocked shapes (one row, the
    live BrownianTerm, R = 4, f32, N = 1e4 and 1e5) and at its chunked
@@ -167,7 +169,8 @@ kernels, and checks every phase:
    chains, depth 6, 40 steps after 60 warmup: grad-evals/s, divergences,
    min ESS, max R-hat, launches a leapfrog, busy share; 2, 8 and 16 chains
    at depth 4), ``BrownianGP.nuts`` on the JAX package's synthetic rotator
-   with its assertions, the modelers' pscan, blocked and chunked solvers
+   with its assertions (2 chains of 150 steps after 200 of warmup, cut
+   from its 300 + 300 for time), the modelers' pscan, blocked and chunked solvers
    against the scan on SpottedStar, and ``QuasiPeriodicGP.nuts``. Phases
    32-33 are this slice's main path: the counts of K1, G1 and G2 are
    zeroed before it and each must have launched in it.
@@ -175,9 +178,8 @@ kernels, and checks every phase:
    starts a group of one): ``sharded_gls`` at the bench shape through the
    spreading kernel, ``sharded_bls`` at config 11 and ``sharded_aov``
    through the fold kernel, ``sharded_pdm`` at config 4, each timed beside
-   its unsharded call: GLS and PDM bit-equal to it, BLS and AoV within 1e-5
-   of the largest value with the same best period (the fold kernel adds
-   with float atomics, so two of its launches differ); ``distributed_fft``,
+   its unsharded call, each bit-equal to it (the fold kernel sums in a
+   fixed order, so two of its launches agree); ``distributed_fft``,
    ``distributed_ifft`` and ``distributed_acf`` of one series of 2^24
    samples in float32 and 2^22 in float64 against the float64 FFT, cuFFT
    and the container's ACF;
@@ -197,15 +199,31 @@ kernels, and checks every phase:
    ``distributed_fft`` and ``log_likelihood_sharded``, each rank in turn on
    the card (the collectives done by the join), against the same stages on
    the CPU, with each rank's stage times; the 4-rank likelihood against the
-   one-rank value.
+   one-rank value;
+38. GP terms wider than 8 slots, after phase 37: every width's compiled
+   local memory and registers (R = 1..16, both dtypes; 0 bytes of local
+   memory up to R = 8 but G3's 8 bytes of stack in float64 at R = 5); on
+   SpottedStar at config 5's shape (64 walkers, N = 2148, f64) a
+   RotationTerm plus a granulation SHOTerm (Q = 1/sqrt(2), R = 12) and a
+   BrownianTerm plus a RotationTerm (R = 14), every parameter a tensor:
+   the likelihood and its gradient (G1, G2) and ``predict`` (G3) against
+   the CPU port within 1e-10; one row of the R = 12 term blocked at N =
+   1e5 and chunked at 1e6 (K1) against the f64 scan within phase 32's
+   limits; G1, G2, G3 and K1 launched in the phase (counted from zero);
+   the rates of config 5's batched likelihood at R = 6, 12, 14 and of
+   config 7's blocked point at R = 4 and 12 (evaluations a second, device
+   ms of G1 or K1, launches, busy share); G1-G3 at R = 12 and 16 at config
+   5's shape and K1 at config 7's N = 1e5, bit-equal to plain, with events,
+   device, plain and bound times (a ``{"wide": ...}`` line).
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (one GPU).
 Any failure raises and the exit code is non-zero. Phases 11-16 print
 their rates as one JSON line, phases 17-20 theirs as another, phases 21-22
 a ``{"decomposition": ...}`` line, phase 23 a ``{"cells": ...}`` line,
 phases 24-26 a ``{"timefrequency": ...}`` line, phases 27-30 a
-``{"gp": ...}`` line, phases 31-33 a ``{"kalman": ...}`` line and phases
-34-37 a ``{"parallel": ...}`` line; the line
+``{"gp": ...}`` line, phases 31-33 a ``{"kalman": ...}`` line, phases
+34-37 a ``{"parallel": ...}`` line and phase 38 a ``{"wide": ...}`` line; the
+line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -767,10 +785,12 @@ def main():
         if rec["name"] in sharded:
             rec["sharded_launches"] = sharded[rec["name"]]
     t9 = time.perf_counter()
+    wide_slice(dev, card, cuda, kernels)
+    t10 = time.perf_counter()
     print(f"wall time: phases 1-6 {t0 - start:.1f} s, 7-10 {t1 - t0:.1f} s, 11-16 "
           f"{t2 - t1:.1f} s, 17-20 {t3 - t2:.1f} s, 21-22 {t4 - t3:.1f} s, 23 {t5 - t4:.1f} s, "
           f"24-26 {t6 - t5:.1f} s, 27-30 {t7 - t6:.1f} s, 31-33 {t8 - t7:.1f} s, 34-37 "
-          f"{t9 - t8:.1f} s")
+          f"{t9 - t8:.1f} s, 38 {t10 - t9:.1f} s")
     print(json_line({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -794,12 +814,11 @@ def phase_slice(dev, card, cuda):
         bls_scan,
     )
 
-    # phase 7a: fold kernel vs plain. Counts (rows of ones) are integers
-    # below 2^24 and must be bit-equal; weighted rows are f32 sums in
-    # another order and must agree within 1e-6 of the row's max |value|.
-    # The rounding of such a sum grows with the square root of the samples
-    # in a bin: the AoV shape puts ~220 samples in each of its 9 bins (the
-    # BLS shape ~8 in each of 256) and is held at 1e-5.
+    # phase 7a: fold kernel vs plain, every row (weighted ones too) bit for
+    # bit against the plain version on the CPU copies of the inputs, which
+    # sums each cell from +0 in ascending sample order as the kernel does
+    # (the AoV shape puts ~220 samples in each of its 9 bins, the BLS shape
+    # ~8 in each of 256); two launches bit-equal.
     t, y = bls_draw()
     w = np.full(BLS_N, 1.0 / BLS_N, np.float32)
     wyc = (w * (y - np.sum(w * y))).astype(np.float32)
@@ -837,25 +856,21 @@ def phase_slice(dev, card, cuda):
              None if off is None else cuda(off))
         fold_args[label] = a
         got = fold_onehot(*a)
-        ref = fold_onehot_plain(*a)
-        torch.cuda.synchronize()
-        check(got.shape == ref.shape == (len(periods), vals.shape[0], n_phi * stride),
-              f"fold {label}: shape")
+        again = fold_onehot(*a)
+        check(got.shape == (len(periods), vals.shape[0], n_phi * stride), f"fold {label}: shape")
+        # the CPU plain version at every period up to 10,000, then at an even
+        # spread of them (each period's histogram depends on no other)
+        step = max(1, len(periods) // 10_000)
+        ref = fold_onehot_plain(a[0].cpu(), a[1].cpu(), a[2][::step].cpu(), *a[3:5],
+                                None if a[5] is None else a[5].cpu())
+        check(same_bits(got[::step], ref), f"fold {label}: every row bit-equal to the CPU plain "
+                                            f"version")
+        check(same_bits(again, got), f"fold {label}: two launches bit-equal")
         for r in counts:
-            check(torch.equal(got[:, r], ref[:, r]), f"fold {label}: count row {r} bit-equal")
             check(bool((got[:, r].sum(-1) == len(tt)).all()), f"fold {label}: counts sum to N")
-        tol = 1e-5 if len(tt) / (n_phi * stride) > 64 else 1e-6
-        worst = 0.0
-        for r in range(vals.shape[0]):
-            if r in counts:
-                continue
-            err = float((got[:, r] - ref[:, r]).abs().max())
-            scale = float(ref[:, r].abs().max())
-            check(err <= tol * scale, f"fold {label}: row {r} {err} > {tol}*{scale}")
-            worst = max(worst, err / scale)
-            fold_err = max(fold_err, err)
-        print(f"fold kernel vs plain [{label}]: count rows {counts} bit-equal, "
-              f"weighted rows max|d|/max|row| {worst:.3e} (tolerance {tol:g})")
+        print(f"fold kernel vs plain [{label}]: every row bit-equal to the CPU plain version at "
+              f"{len(range(0, len(periods), step))} periods ({vals.shape[0]} rows, counts "
+              f"{counts}); two launches bit-equal")
 
     # phase 7b: unfactored spreading kernel vs plain, as for B1
     grid_cases = {
@@ -1076,6 +1091,7 @@ def phase_slice(dev, card, cuda):
             "route": "cuda",
             "source": "periodicity_tpu_torch/csrc/fold.cu",
             "replaces": "periodicity_tpu/ops/pallas_bls.py:126",
+            "held": "bit-equal to the CPU plain version, every row",
             "launches": bls_launches,
             "max_abs_err": fold_err,
             "ms": fold_times["config 11 (N=2000, P=1e5, 2x256)"]["kernel"],
@@ -2898,7 +2914,7 @@ def celerite_kernels(dev, card, cuda, clock_hz):
     from periodicity_tpu_torch.ops import celerite as C
 
     recs = {
-        name: {"name": name, "route": "cuda", "source": "periodicity_tpu_torch/csrc/celerite.cu",
+        name: {"name": name, "route": "cuda", "source": "periodicity_tpu_torch/csrc/celerite.cuh",
                "replaces": rep, "held": "bit-equal", "max_abs_err": 0.0}
         for name, rep in (("celerite_forward", "periodicity_tpu/models/gp/solver.py:161"),
                           ("celerite_adjoint", "periodicity_tpu/models/gp/solver.py:161"),
@@ -2907,15 +2923,16 @@ def celerite_kernels(dev, card, cuda, clock_hz):
     for name in ("celerite_forward", "celerite_solve"):
         recs[name]["redesigned"] = 12
     recs["celerite_adjoint"]["redesigned"] = 13
-    g5, g3n = C.kernel_geometry(b=C5_WALKERS, r=6), C.kernel_geometry(k=2148)
+    g5, g3n = C.kernel_geometry(b=C5_WALKERS, r=6), C.kernel_geometry(k=2148, r=6)
     g2g = C.kernel_geometry(b=C5_WALKERS, r=6, adjoint=True)
     recs["celerite_forward"]["geometry_config5"] = g5
     recs["celerite_adjoint"]["geometry_config5"] = g2g
     recs["celerite_solve"]["geometry_k2148"] = g3n
     print(f"phase 27 launch geometry: G1 at config 5 {g5}; G2 at config 5 {g2g}; G3 at K = 2148 "
           f"{g3n}")
-    # G2 keeps its rows in registers: no instantiation may use local memory
-    g2_attrs = {f"{'f64' if dt == torch.float64 else 'f32'}_r{r}": C.adjoint_attributes(r, dt)
+    # G2 keeps its rows in registers up to R = 8: no local memory there
+    g2_attrs = {f"{'f64' if dt == torch.float64 else 'f32'}_r{r}":
+                C.kernel_attributes(r, dt)["adjoint"]
                 for dt in (torch.float64, torch.float32) for r in range(1, C.MAX_R + 1)}
     recs["celerite_adjoint"]["attributes"] = g2_attrs
     print("phase 27 G2 instantiations (local bytes / registers / shared bytes): "
@@ -3196,7 +3213,7 @@ def celerite_kernels(dev, card, cuda, clock_hz):
                         "float64 unprefixed and float32 under f32_; G3 one row with K = N "
                         "right-hand sides (k1_: K = 1); G1 and G2 b8_: 8 walkers, float64; G2 "
                         "f32_b4_: 4 walkers (config 13's chains), float32")
-    check(all(a["local_bytes"] == 0 for a in g2_attrs.values()),
+    check(all(a["local_bytes"] == 0 for k, a in g2_attrs.items() if int(k.split("_r")[1]) <= 8),
           "G2 uses no local memory at R = 1..8 in float32 and float64")
     return recs
 
@@ -3484,8 +3501,11 @@ C7_CHUNKED_N, C7_CHUNK, C7_INNER = 1_000_000, 65536, 512
 C13_CHAINS, C13_DEPTH, C13_STEPS, C13_WARMUP = 4, 6, 40, 60
 C13_SCALING = (2, 8, 16)
 # the JAX package's NUTS checks on its synthetic rotator (tests/test_nuts.py:
-# 76-129): BrownianGP.nuts and QuasiPeriodicGP.nuts on every third sample
-ROTATOR_NUTS = dict(n_chains=2, n_steps=300, n_warmup=300, burn=50, max_depth=6,
+# 76-129): BrownianGP.nuts and QuasiPeriodicGP.nuts on every third sample;
+# the rotator's chains cut from 300 + 300 steps to 150 + 200 (the run is
+# host-bound, ~0.4-0.7 s a step, and the smoke has 1200 s), the checks
+# unchanged
+ROTATOR_NUTS = dict(n_chains=2, n_steps=150, n_warmup=200, burn=50, max_depth=6,
                     random_seed=42)
 QP_NUTS = dict(n_chains=2, n_steps=100, n_warmup=150, burn=25, max_depth=5, random_seed=0)
 # the JAX package's float32 characterization of the scan against float64
@@ -3544,7 +3564,8 @@ def k1_chain_ops(r):
 
 
 K1_SLOTS = {1: (1, 0), 2: (0, 1), 3: (1, 1), 4: (2, 1), 5: (1, 2), 6: (2, 2), 7: (3, 2),
-            8: (4, 2)}
+            8: (4, 2), 9: (1, 4), 10: (2, 4), 11: (3, 4), 12: (2, 5), 13: (3, 5), 14: (2, 6),
+            15: (3, 6), 16: (4, 6)}
 
 
 def k1_draw(rng, r, b, n, dtype):
@@ -3669,7 +3690,7 @@ def kalman_slice(dev, card, cuda):
     start = time.perf_counter()
     out = {"card": card, "sm_clock_max_mhz": clock_hz / 1e6}
     rec = {"name": "kalman_blocked", "route": "cuda",
-           "source": "periodicity_tpu_torch/csrc/kalman.cu",
+           "source": "periodicity_tpu_torch/csrc/kalman.cuh",
            "replaces": "periodicity_tpu/models/gp/pscan.py:333", "held": "bit-equal",
            "max_abs_err": 0.0}
 
@@ -3688,14 +3709,17 @@ def kalman_slice(dev, card, cuda):
                                None if carry is None else tuple(c.to(dev) for c in carry))
         held(args, nb, carry, got, label)
 
-    # phase 31: K1 against its plain version, bit for bit, at R = 1..8 in
+    # phase 31: K1 against its plain version, bit for bit, at R = 1..8, 12, 16 in
     # both dtypes, from the identity and from an incoming carry, at block
     # counts that divide N and that do not (and more blocks than samples)
     rng = np.random.default_rng(31)
     cases = 0
-    for r in K1_SLOTS:
+    # past R = 8 the widths of phase 38's terms, R = 12 and 16 (the card
+    # tests hold every width), and draws of 257 samples at most: the plain
+    # version takes seconds a call there
+    for r in [r for r in K1_SLOTS if r <= 8 or r in (12, 16)]:
         for dtype in (torch.float64, torch.float32):
-            for b, n, nb in ((3, 1001, 7), (2, 64, 8), (1, 5, 16)):
+            for b, n, nb in ((3, 1001 if r <= 8 else 257, 7), (2, 64, 8), (1, 5, 16)):
                 coeffs, dt, A, Q, H, diag, y = k1_draw(rng, r, b, n, dtype)
                 args = [x.contiguous() for x in (A, Q, H, diag, y)]
                 both(args, nb, None, f"R = {r}, {dtype}, B={b}, N={n}, {nb} blocks")
@@ -3707,8 +3731,9 @@ def kalman_slice(dev, card, cuda):
                 both([x.contiguous() for x in (Ac, Qc, H, diag, y)], nb, carry,
                      f"R = {r}, {dtype}, B={b}, N={n}, {nb} blocks, with a carry")
                 cases += 2
-    print(f"phase 31 K1 bit-equal to plain in {cases} cases: R = 1..8, f32 and f64, B = 1..3, "
-          f"N = 5, 64, 1001 over 7, 8 and 16 blocks, from the identity and from a carry")
+    print(f"phase 31 K1 bit-equal to plain in {cases} cases: R = 1..8, 12, 16, f32 and f64, "
+          f"B = 1..3, N = 5, 64, 1001 (257 past R = 8) over 7, 8 and 16 blocks, from the "
+          f"identity and from a carry")
 
     # K1 bit-equal to plain at the main path's own shapes, on the operands
     # that the solvers hand it: config 7's chunked point at N = 1e6 in f32
@@ -4036,7 +4061,8 @@ def kalman_slice(dev, card, cuda):
                               "min_ess": float(np.min(m.nuts_diagnostics["ess"])),
                               "max_rhat": float(np.nanmax(m.nuts_diagnostics["rhat"])),
                               "divergences": int(m.nuts_diagnostics["divergences"].sum())}
-    print(f"phase 33 BrownianGP.nuts (2 chains, 300 + 300, depth 6, synthetic rotator): median "
+    print(f"phase 33 BrownianGP.nuts (2 chains, {ROTATOR_NUTS['n_steps']} + "
+          f"{ROTATOR_NUTS['n_warmup']}, depth 6, synthetic rotator): median "
           f"period {med:.3f} ({s_nuts:.1f} s), acceptance {m.acceptance:.3f}, min ESS "
           f"{out['browniangp_nuts']['min_ess']:.1f}, max R-hat "
           f"{out['browniangp_nuts']['max_rhat']:.3f}  ({card})")
@@ -4393,27 +4419,20 @@ def parallel_slice(dev, card, cuda):
     kw = dict(widths=tuple(max(1, int(round(q * BLS_NBINS))) for q in BLS_DURATIONS),
               nbins=BLS_NBINS, batch_size=BLS_BATCH, binner="kernel")
     def fold_close(label, got, want, again):
-        """A fold-kernel scan's sharded result against its unsharded call:
-        B2 adds weighted values with shared f32 atomics, so two launches
-        may round a bin's sum in another order (``again``, a second
-        unsharded call, shows it). Held as phase 7a holds the fold: within
-        1e-5 of the largest value, the same best period."""
+        """A fold-kernel scan's sharded result against its unsharded call,
+        bit for bit, as GLS and PDM are: B2 sums each bin in a fixed order,
+        so two launches agree (``again``, a second unsharded call, shows
+        it)."""
         got, want, again = (x if isinstance(x, tuple) else (x,) for x in (got, want, again))
         got = tuple(g.full_tensor() for g in got)
-        d = max(float((g.double() - w.double()).abs().max() / w.abs().max())
-                for g, w in zip(got[:2], want[:2]))
-        spread = max(float((a.double() - w.double()).abs().max() / w.abs().max())
-                     for a, w in zip(again[:2], want[:2]))
-        best = int(torch.argmax(want[0]))
-        same = all(bool(g[best] == w[best]) for g, w in zip(got[2:], want[2:]))
-        check(d <= 1e-5 and int(torch.argmax(got[0])) == best and same,
-              f"{label}: sharded within {d:.2e} of the unsharded scan (limit 1e-5), best "
-              f"{int(torch.argmax(got[0]))} vs {best}")
         bits = all(bit_equal(g, w) for g, w in zip(got, want))
-        out.setdefault("fold_kernel_world1", {})[label] = {
-            "rel_vs_unsharded": d, "unsharded_run_to_run_rel": spread, "bit_equal": bits}
-        print(f"phase 34 {label}: sharded vs unsharded {d:.2e} of the largest value (bit-equal "
-              f"{bits}); two unsharded calls {spread:.2e} apart (B2's float atomics)  ({card})")
+        repeat = all(bit_equal(a, w) for a, w in zip(again, want))
+        check(bits and repeat, f"{label}: sharded bit-equal to the unsharded scan ({bits}), two "
+                               f"unsharded calls bit-equal ({repeat})")
+        out.setdefault("fold_kernel_world1", {})[label] = {"bit_equal": bits,
+                                                           "unsharded_repeat_bit_equal": repeat}
+        print(f"phase 34 {label}: sharded bit-equal to the unsharded scan; two unsharded calls "
+              f"bit-equal  ({card})")
 
     got = counted(tally, fold_onehot, -(-BLS_P // BLS_BATCH),
                   lambda: sharded_bls(tbc, ybc, wb, pb, mesh, **kw), "sharded_bls: one a chunk")
@@ -4679,6 +4698,334 @@ def parallel_slice(dev, card, cuda):
     out["wall_s"] = {"34": t34 - start, "35": t35 - t34, "36": t36 - t35, "37": t37 - t36}
     print(json_line({"parallel": out}))
     return launches
+
+
+# phase 38: GP terms wider than 8 slots, on SpottedStar at config 5's shape
+# (64 walkers, N = 2148) and at config 7's long points (one row)
+GRANULATION_Q = 1 / math.sqrt(2)
+WIDE_KINDS = ("rot_gran", "brown_rot", "rot_rot")
+
+
+def wide_term(w, kind):
+    """One of the phase's terms, its parameters from walker multipliers w
+    [..., 10] (every parameter a tensor, so every SHO is masked): rot_gran,
+    a RotationTerm plus an SHOTerm for granulation (Q = 1/sqrt(2)), R = 12;
+    brown_rot, a BrownianTerm plus a RotationTerm, R = 14 (the Brownian
+    background's Q = 0.01 is a number, live); rot_rot, two RotationTerms,
+    R = 16."""
+    import torch
+
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm, RotationTerm, SHOTerm
+
+    rot = RotationTerm(sigma=0.01 * w[..., 0], period=10.0 * w[..., 1], Q0=1.0 * w[..., 2],
+                       dQ=1.0 * w[..., 3], f=0.5 * w[..., 4])
+    if kind == "rot_gran":
+        q = torch.full_like(w[..., 7], GRANULATION_Q)
+        return rot + SHOTerm(sigma=0.003 * w[..., 5], rho=1.0 * w[..., 6], Q=q)
+    if kind == "brown_rot":
+        return BrownianTerm(0.01 * w[..., 5], 20.0 * w[..., 6], 10.0 * w[..., 7],
+                            0.3 * w[..., 8]) + rot
+    return rot + RotationTerm(sigma=0.005 * w[..., 5], period=3.0 * w[..., 6],
+                              Q0=0.5 * w[..., 7], dQ=0.5 * w[..., 8], f=0.3 * w[..., 9])
+
+
+def term_width(term):
+    ar, _, ac = term.coefficients()[:3]
+    return ar.shape[-1] + 2 * ac.shape[-1]
+
+
+def wide_slice(dev, card, cuda, kernels):
+    """Phase 38: the GP kernels at R = 9..16. Card against the CPU port on
+    SpottedStar (likelihood, gradient, predict), the long solvers against
+    the f64 scan, the rates beside config 5's and config 7's own terms, and
+    G1-G3 and K1 timed at R = 12 and 16. Adds their times, bounds and
+    compiled resources to the kernels' records; prints a ``{"wide": ...}``
+    line."""
+    import torch
+
+    from periodicity_tpu_torch import data as pdata
+    from periodicity_tpu_torch.gp import log_likelihood_blocked, log_likelihood_chunked
+    from periodicity_tpu_torch.models.gp import pscan
+    from periodicity_tpu_torch.models.gp.solver import (GaussianProcess, _rows,
+                                                       celerite_matrices, log_likelihood)
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm
+    from periodicity_tpu_torch.ops import celerite as C
+    from periodicity_tpu_torch.ops import kalman as K
+    from periodicity_tpu_torch.utils.dtypes import full_float32
+
+    clock_hz = sm_clock_hz()
+    recs = {r["name"]: r for r in kernels}
+    out = {"card": card}
+    # every width's compiled resources, both dtypes: 0 bytes of local memory
+    # up to R = 8 (held in phases 27 and 31), printed and recorded past it
+    attrs = {}
+    for r in range(1, C.MAX_R + 1):
+        for dt in (torch.float64, torch.float32):
+            key = f"{'f64' if dt == torch.float64 else 'f32'}_r{r}"
+            attrs[key] = {"celerite": C.kernel_attributes(r, dt), "kalman": K.kernel_attributes(r, dt)}
+            if r <= 8:
+                # G3 in float64 at R = 5 has kept 8 bytes of stack since its
+                # redesign (PR 12); every other stage none
+                check(all(a["local_bytes"] == (8 if (name, key) == ("solve", "f64_r5") else 0)
+                          for part in attrs[key].values() for name, a in part.items()),
+                      f"no local memory at {key}: {attrs[key]}")
+    out["attributes"] = attrs
+    print("phase 38 local bytes / registers a thread past R = 8 (G1 with y and the saved "
+          "state, G2, G3; K1's element, prefix, tree, innovation): " + "; ".join(
+              f"{k} " + ", ".join(f"{a['local_bytes']}/{a['registers']}" for a in (
+                  v["celerite"]["forward_y_save"], v["celerite"]["adjoint"],
+                  v["celerite"]["solve"], *v["kalman"].values()))
+              for k, v in attrs.items() if int(k.split("_r")[1]) > 8))
+
+    t, y, dy = pdata.SpottedStar()
+    w_np = np.random.default_rng(38).uniform(0.8, 1.2, (C5_WALKERS, 10))
+    tn = np.linspace(t[0], t[-1], 300)
+    for fn in (C.celerite_forward, C.celerite_adjoint, C.celerite_solve, K.kalman_blocked):
+        fn.launches = 0
+    # the likelihood and its gradient for the 64 walkers (G1, G2), and
+    # predict (G1, G3) for walker 0, card against the CPU port in f64
+    card_cpu = {}
+    for kind in ("rot_gran", "brown_rot"):
+        def run(device, kind=kind):
+            w = torch.from_numpy(w_np).to(device, torch.float64).requires_grad_(True)
+            tt, yy, diag = (torch.from_numpy(a).to(device) for a in (t, y - y.mean(), dy**2))
+            term = wide_term(w, kind)
+            ll = log_likelihood(term, tt, diag, yy)
+            (g,) = torch.autograd.grad(ll.sum(), w)
+            w0 = torch.from_numpy(w_np[0]).to(device).requires_grad_(True)
+            gp = GaussianProcess(wide_term(w0, kind)).compute(tt, diag=diag)
+            mu, var = gp.predict(yy, t=torch.from_numpy(tn).to(device), return_var=True)
+            return term_width(term), [x.detach().cpu() for x in (ll, g, mu, var)]
+
+        r, got = run(dev)
+        _, want = run("cpu")
+        rel = {name: float((a - b).abs().max() / b.abs().max())
+               for name, a, b in zip(("ll", "grad", "predict_mean", "predict_var"), got, want)}
+        card_cpu[kind] = {"R": r, "rel_vs_cpu": rel}
+        check(r == {"rot_gran": 12, "brown_rot": 14}[kind], f"{kind}: R = {r}")
+        check(max(rel.values()) <= F64_LL_REL, f"{kind} (R = {r}) card vs CPU: {rel}")
+        print(f"phase 38 {kind} (R = {r}, SpottedStar, {C5_WALKERS} walkers, f64): card vs CPU "
+              + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()) + f" (limit {F64_LL_REL})")
+    out["card_vs_cpu"] = card_cpu
+
+    # one row of the R = 12 term at config 7's long points, f32 and f64,
+    # against the f64 scan within phase 32's limits (a batch of one row keeps
+    # every SHO masked under no_grad)
+    w1 = {dt: torch.from_numpy(w_np[:1]).to(dev, dt) for dt in (torch.float32, torch.float64)}
+    long_pts = {}
+    rng7 = np.random.default_rng(38)
+    for n, name in ((C7_SOLVER_NS[1], "blocked"), (C7_CHUNKED_N, "chunked")):
+        def solve(term, tt, d, yy, n=n, name=name):
+            if name == "blocked":
+                return log_likelihood_blocked(term, tt, d, yy, n_blocks=c7_blocks(n))
+            return log_likelihood_chunked(term, tt, d, yy, chunk=C7_CHUNK,
+                                          inner_blocks=C7_INNER)
+
+        t7, y7 = c7_series(rng7, n)
+        tt, yy = cuda(t7), cuda(y7)
+        diag = torch.full_like(tt, 0.01)
+        with torch.no_grad():
+            terms = {dt: wide_term(w, "rot_gran") for dt, w in w1.items()}
+            ref = float(log_likelihood(terms[torch.float64], tt.double(), diag.double(),
+                                       yy.double()))
+            ll64 = float(solve(terms[torch.float64], tt.double(), diag.double(), yy.double()))
+            with full_float32():
+                ll32 = float(solve(terms[torch.float32], tt, diag, yy))
+        rel64, rel32 = abs(ll64 - ref) / abs(ref), abs(ll32 - ref) / abs(ref)
+        long_pts[f"{name}_N{n}"] = {"R": term_width(terms[torch.float64]), "ll_f64_scan": ref,
+                                    "f64_rel": rel64, "f32_rel": rel32}
+        check(term_width(terms[torch.float32]) == 12, "one row of rot_gran is R = 12")
+        check(rel64 <= F64_LL_REL and rel32 <= F32_LL_REL_LONG[n],
+              f"R = 12 {name} N={n}: f64 rel {rel64:.2e} (limit {F64_LL_REL}), f32 rel "
+              f"{rel32:.2e} (limit {F32_LL_REL_LONG[n]}) to the f64 scan")
+        print(f"phase 38 rot_gran (R = 12, one row) {name} N={n}: to the f64 scan, f64 "
+              f"{rel64:.2e} (limit {F64_LL_REL}), f32 {rel32:.2e} (limit "
+              f"{F32_LL_REL_LONG[n]})")
+    out["long"] = long_pts
+    path = {"celerite_forward": C.celerite_forward.launches,
+            "celerite_adjoint": C.celerite_adjoint.launches,
+            "celerite_solve": C.celerite_solve.launches, "kalman_blocked": K.kalman_blocked.launches}
+    check(all(v > 0 for v in path.values()), f"phase 38 launched every GP kernel: {path}")
+    out["launches"] = path
+    print("phase 38 launches (counted from zero): " + ", ".join(f"{k} {v}" for k, v in path.items()))
+
+    # rates: config 5's batched likelihood (k = 10 chained, 64 walkers) at
+    # R = 6 (its BrownianTerm), 12 and 14; config 7's blocked point at N =
+    # 1e5 (one row, f32) with its live BrownianTerm (R = 4) and at R = 12
+    rates = {}
+    tt64, yy64, dg64 = (torch.from_numpy(a).to(dev) for a in (t, y - y.mean(), dy**2))
+    for dt, dname in ((torch.float32, "f32"), (torch.float64, "f64")):
+        tt, yy, diag = (x.to(dt) for x in (tt64, yy64, dg64))
+        w0 = torch.from_numpy(w_np).to(dev, dt)
+        makes = {"config5_R6": lambda ws: BrownianTerm(0.01 * ws[:, 0], 20.0 * ws[:, 1],
+                                                       10.0 * ws[:, 2], 0.3 * ws[:, 3]),
+                 "rot_gran": lambda ws: wide_term(ws, "rot_gran"),
+                 "brown_rot": lambda ws: wide_term(ws, "brown_rot")}
+        for key, make in makes.items():
+            def evaluate(ws, make=make, tt=tt, yy=yy, diag=diag):
+                return log_likelihood(make(ws), tt, diag, yy)
+
+            def chained(k=C5_K, w0=w0, evaluate=evaluate):
+                ws, acc = w0, torch.zeros((), dtype=w0.dtype, device=dev)
+                for _ in range(k):
+                    lls = evaluate(ws)
+                    ws = ws + lls[:, None] * 1e-12
+                    acc = acc + lls[0]
+                return acc
+
+            with torch.no_grad():
+                chained(1)
+                ms = statistics.median(event_ms(chained, 1) for _ in range(3)) / C5_K
+                work, wall = profiled(lambda: evaluate(w0), pad=2)
+            g1 = sum(us for name, us in work if "celerite_forward" in name) / 1e3
+            rates[f"{key}_{dname}"] = {
+                "R": term_width(make(w0)), "ms_per_batch": ms,
+                "evals_per_s": C5_WALKERS / (ms / 1e3), "launches_per_eval": len(work),
+                "busy_share": sum(us for _, us in work) / 1e6 / wall, "g1_device_ms": g1}
+    with torch.no_grad(), full_float32():
+        t7, y7 = c7_series(np.random.default_rng(0), C7_SOLVER_NS[1])
+        tt, yy = cuda(t7), cuda(y7)
+        diag = torch.full_like(tt, 0.01)
+        nb = c7_blocks(tt.shape[0])
+        for key, term in (("config7_blocked_R4", BrownianTerm(0.01, 20.0, 10.0, 0.3)),
+                          ("blocked_rot_gran", wide_term(w1[torch.float32], "rot_gran"))):
+            def chained(term=term):
+                y0, acc = yy, torch.zeros((), dtype=torch.float32, device=dev)
+                for _ in range(C7_K):
+                    ll = log_likelihood_blocked(term, tt, diag, y0, n_blocks=nb)
+                    y0 = y0 + ll * 1e-12
+                    acc = acc + ll
+                return acc
+
+            chained()
+            ms = statistics.median(event_ms(chained, 1) for _ in range(2)) / C7_K
+            work, wall = profiled(lambda term=term: log_likelihood_blocked(
+                term, tt, diag, yy, n_blocks=nb), pad=1)
+            rates[f"{key}_f32"] = {
+                "R": term_width(term), "ms": ms, "evals_per_s": 1e3 / ms,
+                "launches_per_eval": len(work), "busy_share": sum(us for _, us in work) / 1e6 / wall,
+                "k1_device_ms": sum(us for name, us in work if "kalman" in name) / 1e3}
+    out["rates"] = rates
+    for key, v in rates.items():
+        dev_ms = v.get("g1_device_ms", v.get("k1_device_ms"))
+        print(f"phase 38 rate {key} (R = {v['R']}): {v['evals_per_s']:.4e} evals/s, "
+              f"{v['launches_per_eval']} launches an evaluation, busy {v['busy_share']:.1%}, "
+              f"{'G1' if 'g1_device_ms' in v else 'K1'} {dev_ms:.4f} ms device  ({card})")
+
+    # G1, G2, G3 at R = 12 (rot_gran) and 16 (rot_rot) at config 5's shape,
+    # f64 and f32: bit-equal to plain, events, device, plain, chain bound
+    for kind in ("rot_gran", "rot_rot"):
+        for dt in (torch.float64, torch.float32):
+            dname = "float64" if dt == torch.float64 else "float32"
+            w = torch.from_numpy(w_np).to(dev, dt)
+            tt, yy, diag = (x.to(dt) for x in (tt64, yy64, dg64))
+            term = wide_term(w, kind)
+            (A, U, V, P, yb), _ = _rows(*celerite_matrices(term, tt, diag), yy)
+            A, U, V, P, yb = (x.contiguous() for x in (A, U, V, P, yb))
+            b, n, r = U.shape
+            pre = f"r{r}_" if dt == torch.float64 else f"f32_r{r}_"
+            elem = A.element_size()
+            kk = r * (r + 1) // 2
+            got = C.celerite_forward(A, U, V, P, yb, save=True)
+            want = C.celerite_forward_plain(*(x.cpu() for x in (A, U, V, P, yb)), save=True)
+            check(all(same_bits(a, w_) for a, w_ in zip(got, want)), f"G1 at R = {r} {dname}")
+            D, W, z, S_saved, f_saved = got
+            rng = np.random.default_rng(r)
+            dD, dz = (torch.from_numpy(rng.standard_normal((b, n))).to(dev, dt) for _ in range(2))
+            adj = (U, P, D, W, z, S_saved, f_saved, dD, dz)
+            check(all(same_bits(a, w_) for a, w_ in zip(
+                C.celerite_adjoint(*adj), C.celerite_adjoint_plain(*(x.cpu() for x in adj)))),
+                f"G2 at R = {r} {dname}")
+            Y = torch.from_numpy(rng.standard_normal((n, n))).to(dev, dt)
+            solve_args = (U[0], P[0], D[0], W[0])
+            check(same_bits(C.celerite_solve(*solve_args, Y),
+                            C.celerite_solve_plain(*(x.cpu() for x in (*solve_args, Y)))),
+                  f"G3 at R = {r} {dname}")
+            g1 = lambda: C.celerite_forward(A, U, V, P, yb, want_w=False)  # noqa: E731
+            g2 = lambda: C.celerite_adjoint(*adj)  # noqa: E731
+            g3 = lambda: C.celerite_solve(*solve_args, Y)  # noqa: E731
+            y1 = Y[:, :1].contiguous()
+            g31 = lambda: C.celerite_solve(*solve_args, y1)  # noqa: E731
+            a = attrs[f"{'f64' if dt == torch.float64 else 'f32'}_r{r}"]["celerite"]
+            for name, fn, kname, reps, plain, nbytes, chain, att in (
+                    ("celerite_forward", g1, "celerite_forward_kernel", 10,
+                     lambda: C.celerite_forward_plain(A, U, V, P, yb),
+                     elem * b * (n + 2 * n * r + (n - 1) * r + n + 2 * n),
+                     n * g1_chain_ops(r), a["forward_y"]),
+                    ("celerite_adjoint", g2, "celerite_adjoint_kernel", 5,
+                     lambda: C.celerite_adjoint_plain(*adj),
+                     elem * b * (n * r + (n - 1) * r + 3 * n + n * r + (n - 1) * (kk + r)
+                                 + 2 * n + n + 2 * n * r + (n - 1) * r + n),
+                     n * g2_chain_ops(r), a["adjoint"]),
+                    ("celerite_solve", g3, "celerite_solve_kernel", 3,
+                     lambda: C.celerite_solve_plain(*solve_args, Y),
+                     elem * (3 * n * r + n + 2 * n * n), n * g3_chain_ops(r), a["solve"])):
+                rec = recs[name]
+                rec[f"{pre}ms"] = event_ms(fn, reps)
+                rec[f"{pre}device_ms"] = device_us(fn, kname, 3) / 1e3
+                rec[f"{pre}plain_ms"] = plain_wall_ms(plain)
+                rec[f"{pre}bound_ms"], rec[f"{pre}bound_by"] = chain_bound(
+                    nbytes, chain, dname, clock_hz)
+                rec[f"{pre}local_bytes"], rec[f"{pre}registers"] = (att["local_bytes"],
+                                                                   att["registers"])
+            rec = recs["celerite_solve"]
+            rec[f"{pre}k1_ms"] = event_ms(g31, 10)
+            rec[f"{pre}k1_device_ms"] = device_us(g31, "celerite_solve_kernel", 3) / 1e3
+            rec[f"{pre}k1_bound_ms"], rec[f"{pre}k1_bound_by"] = chain_bound(
+                elem * (3 * n * r + n + 2 * n), n * g3_chain_ops(r), dname, clock_hz)
+            print(f"phase 38 {kind} (B={b}, N={n}, R={r}, {dname}), bit-equal to plain: "
+                  + "; ".join(f"{nm} {recs[nm][pre + 'ms']:.4f} ms (device "
+                              f"{recs[nm][pre + 'device_ms']:.4f}, plain "
+                              f"{recs[nm][pre + 'plain_ms']:.1f}, bound "
+                              f"{recs[nm][pre + 'bound_ms']:.4f} {recs[nm][pre + 'bound_by']}, "
+                              f"local {recs[nm][pre + 'local_bytes']} B, "
+                              f"{recs[nm][pre + 'registers']} registers)"
+                              for nm in ("celerite_forward", "celerite_adjoint", "celerite_solve"))
+                  + f"; G3 K=1 {recs['celerite_solve'][pre + 'k1_ms']:.4f} ms (device "
+                  f"{recs['celerite_solve'][pre + 'k1_device_ms']:.4f})  ({card})")
+
+    # K1 at config 7's N = 1e5 blocked point (one row, 390 blocks, f32) at
+    # R = 12 and 16: bit-equal to plain, events, device, plain, chain bound
+    rec = recs["kalman_blocked"]
+    t7, y7 = c7_series(np.random.default_rng(0), C7_SOLVER_NS[1])
+    tt, yy = cuda(t7), cuda(y7)
+    nb = c7_blocks(tt.shape[0])
+    for kind in ("rot_gran", "rot_rot"):
+        with torch.no_grad(), full_float32():
+            coeffs, tc, dd, yc, batch = pscan._prepared(wide_term(w1[torch.float32], kind), tt,
+                                                        torch.full_like(tt, 0.01), yy)
+            dtc = torch.cat([tc.new_zeros(1), torch.diff(tc)])
+            A, Q, H, d, yk = pscan._k1_inputs(coeffs, dtc, dd, yc, batch, True)
+        n, r = A.shape[1], A.shape[-1]
+        pre = f"r{r}_N{n}_"
+        fn = lambda: K.kalman_blocked(A, Q, H, d, yk, nb)  # noqa: E731
+        got = fn()
+        t0 = time.perf_counter()
+        want = K.kalman_blocked_plain(*(x.cpu() for x in (A, Q, H, d, yk)), nb)
+        rec[f"{pre}plain_ms"] = (time.perf_counter() - t0) * 1e3
+        check(all(same_bits(a, w_) for a, w_ in zip((got[0], got[1], *got[2]),
+                                                    (want[0], want[1], *want[2]))),
+              f"K1 at R = {r}, N = {n}: bit-equal to plain")
+        rec[f"{pre}ms"] = event_ms(fn, 5)
+        work, _ = profiled(fn, reps=2)
+        rec[f"{pre}device_ms"] = sum(us for name, us in work if "kalman" in name) / 2 / 1e3
+        geo = K.kernel_geometry(1, n, r, nb, False, A.dtype)
+        rec[f"{pre}bound_ms"], rec[f"{pre}bound_by"] = chain_bound(
+            A.element_size() * n * (2 * r * r + 4),
+            (geo["length"] + K.tree_levels(geo["blocks"] + 1) + 1) * k1_chain_ops(r), "float32",
+            clock_hz)
+        stages = attrs[f"f32_r{r}"]["kalman"]
+        rec[f"{pre}local_bytes"] = {k: v["local_bytes"] for k, v in stages.items()}
+        rec[f"{pre}registers"] = {k: v["registers"] for k, v in stages.items()}
+        print(f"phase 38 K1 {kind} (R = {r}, one row, N = {n}, {nb} blocks, f32), bit-equal to "
+              f"plain: {rec[pre + 'ms']:.4f} ms (device {rec[pre + 'device_ms']:.4f}, plain "
+              f"{rec[pre + 'plain_ms']:.1f}, bound {rec[pre + 'bound_ms']:.4f} "
+              f"{rec[pre + 'bound_by']}; local bytes {rec[pre + 'local_bytes']}, registers "
+              f"{rec[pre + 'registers']})  ({card})")
+    for name in ("celerite_forward", "celerite_adjoint", "celerite_solve", "kalman_blocked"):
+        recs[name]["widths"] = [1, C.MAX_R]
+        recs[name]["wide_launches"] = path[name]
+    print(json_line({"wide": out}))
 
 
 if __name__ == "__main__":

@@ -78,12 +78,13 @@ ENTRY_POINTS = {
     # U, P, D, W, Y, n, r, k, X, stream
     "celerite_solve_f32": [_P] * 5 + [_I] * 3 + [_P] * 2,
     "celerite_solve_f64": [_P] * 5 + [_I] * 3 + [_P] * 2,
-    # b, r, int[5] out; k, int[4] out: the launch geometry the kernels use
+    # b, r, int[5] out; k, r, int[4] out: the launch geometry the kernels use
     "celerite_forward_geometry": [_I] * 2 + [_P],
     "celerite_adjoint_geometry": [_I] * 2 + [_P],
-    "celerite_solve_geometry": [_I] + [_P],
-    # r, element size, int[3] out: G2's local memory, registers, shared memory
-    "celerite_adjoint_attributes": [_I] * 2 + [_P],
+    "celerite_solve_geometry": [_I] * 2 + [_P],
+    # r, element size, int[18] out: local memory, registers and shared memory
+    # of G1's four forms, G2 and G3
+    "celerite_kernel_attributes": [_I] * 2 + [_P],
     # A, Q, H, diag, y, carry_in, b, n, r, n_blocks, elems, tree, mu, s, carry_out, stream
     "kalman_blocked_f32": [_P] * 6 + [_I] * 4 + [_P] * 6,
     "kalman_blocked_f64": [_P] * 6 + [_I] * 4 + [_P] * 6,
@@ -96,10 +97,13 @@ ENTRY_POINTS = {
     "kalman_quot_check_f32": [ctypes.c_ulonglong, _I, _P, _P],
 }
 
-# the celerite and Kalman kernels keep a row's state in registers for up to
-# this many slots (a masked RotationTerm: two SHOs of two real and two
-# complex columns each)
-MAX_R = 8
+# the celerite and Kalman kernels take up to this many slots (R): a
+# masked RotationTerm is 8, plus a granulation SHOTerm 12, a BrownianTerm
+# plus a RotationTerm 14 to 16. Each width is a template instance; past 8
+# a lane group is 16 lanes and the widths are built in units of their own
+# (csrc/celerite_r*.cu, csrc/kalman_r*.cu). A wider term runs only on CPU
+# tensors.
+MAX_R = 16
 
 _LIB = None
 
@@ -125,7 +129,8 @@ def _nvcc():
 
 def build():
     """Compile the kernel library from source. Returns a dict with the
-    library ``path``, the build ``seconds`` and nvcc's ``ptxas`` report
+    library ``path``, the build ``seconds``, each source's compile
+    ``source_seconds`` (all start together) and nvcc's ``ptxas`` report
     (registers, shared memory and spills of each kernel)."""
     path = _lib_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -134,16 +139,32 @@ def build():
     # objects and the library go to private names, then the library is
     # renamed into place: a concurrent build never loads a half-written file
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        # each nvcc's report goes to a file, so that the loop below can poll
+        # the processes for each unit's compile time (an unread pipe fills
+        # and stalls nvcc)
         procs = []
         for src in _sources():
             obj = Path(tmp) / f"{src.stem}.o"
+            log = open(Path(tmp) / f"{src.stem}.log", "w+")
             cmd = [nvcc, *_COMPILE, "-o", str(obj), str(src)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            procs.append((src, obj, log, subprocess.Popen(
+                cmd, stdout=subprocess.DEVNULL, stderr=log, text=True)))
+        source_seconds = {}
+        while len(source_seconds) < len(procs):
+            for src, _, _, proc in procs:
+                if src.name not in source_seconds and proc.poll() is not None:
+                    source_seconds[src.name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 600:
+                for *_, proc in procs:
+                    proc.kill()
+                raise RuntimeError("nvcc did not finish within 600 s")
+            time.sleep(0.05)
         reports = []
         failed = []
-        for src, _, proc in procs:
-            _, err = proc.communicate(timeout=600)
+        for src, _, log, proc in procs:
+            log.seek(0)
+            err = log.read()
+            log.close()
             reports.append(f"== {src.name}\n{err}")
             if proc.returncode != 0:
                 failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n{err}")
@@ -151,7 +172,7 @@ def build():
             raise RuntimeError("\n".join(failed))
         lib_tmp = Path(tmp) / path.name
         proc = subprocess.run(
-            [nvcc, *_LINK, "-o", str(lib_tmp), *(str(o) for _, o, _ in procs)],
+            [nvcc, *_LINK, "-o", str(lib_tmp), *(str(o) for _, o, _, _ in procs)],
             capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
@@ -160,7 +181,8 @@ def build():
     seconds = time.perf_counter() - t0
     ptxas = "\n".join(reports)
     path.with_suffix(".ptxas.txt").write_text(ptxas)
-    return {"path": str(path), "seconds": seconds, "ptxas": ptxas}
+    return {"path": str(path), "seconds": seconds, "source_seconds": source_seconds,
+            "ptxas": ptxas}
 
 
 def load():

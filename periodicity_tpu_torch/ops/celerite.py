@@ -7,7 +7,8 @@ The JAX package runs each as a ``lax.scan`` over the N samples
 fuses into one dispatch and differentiates with ``jax.grad``. Eager PyTorch
 would pay a handful of launches for every step of every sweep, so on a CUDA
 tensor each recursion is one launch of a hand-written kernel
-(``csrc/celerite.cu``): G1 walks a walker on a group of lanes, lane i
+(``csrc/celerite.cuh``, R = 1 to :data:`MAX_R` slots): G1 walks a walker
+on a group of lanes, lane i
 owning row i of the state; G2 walks it back on the same lanes, lane i
 owning row i of the adjoint state and of the state it rebuilds; G3 walks
 a column of the right-hand sides on one lane, the coefficients staged in
@@ -216,7 +217,7 @@ def celerite_solve_plain(U, P, D, W, Y):
 def _check_r(r):
     if not 1 <= r <= MAX_R:
         raise ValueError(f"the celerite kernels take 1 to {MAX_R} slots (R), got {r}; a term "
-                         f"this wide runs only on CPU tensors")
+                         f"this wide runs only on CPU tensors, whose plain versions take any R")
 
 
 def kernel_geometry(b=None, r=None, k=None, adjoint=False):
@@ -226,14 +227,14 @@ def kernel_geometry(b=None, r=None, k=None, adjoint=False):
     two >= R, so a group never straddles a warp), ``walkers`` a block (one
     warp walks them; one more warp stages their tiles in G1, three in G2),
     ``blocks``, ``threads`` a block and ``step_tile``, the steps staged at
-    a time. For ``k`` right-hand sides, G3's: ``columns`` a block (a lane a
-    column), ``blocks``, ``threads`` a block (a warp walks the columns'
-    recursions, four stage its tiles and divide by D) and ``row_tile``, the
-    rows staged at a time."""
+    a time. For ``k`` right-hand sides of ``r`` slots, G3's: ``columns`` a
+    block (a lane a column), ``blocks``, ``threads`` a block (a warp walks
+    the columns' recursions, four stage its tiles and divide by D) and
+    ``row_tile``, the rows staged at a time (32, 16 past R = 8)."""
     if k is not None:
         out = (ctypes.c_int * 4)()
         keys = ("columns", "blocks", "threads", "row_tile")
-        err = load().celerite_solve_geometry(k, out)
+        err = load().celerite_solve_geometry(k, r, out)
     else:
         out = (ctypes.c_int * 5)()
         keys = ("lanes", "walkers", "blocks", "threads", "step_tile")
@@ -245,17 +246,25 @@ def kernel_geometry(b=None, r=None, k=None, adjoint=False):
     return dict(zip(keys, out))
 
 
-def adjoint_attributes(r, dtype):
-    """G2's compiled kernel at ``r`` slots in ``dtype``, as the runtime
-    reports it on the current card: ``local_bytes`` of local memory a
-    thread, ``registers`` a thread and the dynamic ``shared_bytes`` a block
-    its launch asks for."""
+_ATTRIBUTE_KERNELS = ("forward_y_save", "forward_y", "forward_save", "forward", "adjoint",
+                      "solve")
+
+
+def kernel_attributes(r, dtype):
+    """Every celerite kernel compiled at ``r`` slots in ``dtype``, as the
+    runtime reports it on the current card: for G1 with y and the saved
+    state (``forward_y_save``), with y, with the saved state, with neither
+    (``forward``), G2 (``adjoint``) and G3 (``solve``), its ``local_bytes``
+    of local memory a thread, ``registers`` a thread and ``shared_bytes`` a
+    block (G2's dynamic tiles included)."""
     _check_r(r)
-    out = (ctypes.c_int * 3)()
-    err = load().celerite_adjoint_attributes(r, dtype.itemsize, out)
+    out = (ctypes.c_int * 18)()
+    err = load().celerite_kernel_attributes(r, dtype.itemsize, out)
     if err != 0:
-        raise RuntimeError(f"celerite_adjoint_attributes failed: cudaError {err}")
-    return dict(zip(("local_bytes", "registers", "shared_bytes"), out))
+        raise RuntimeError(f"celerite_kernel_attributes failed: cudaError {err}")
+    keys = ("local_bytes", "registers", "shared_bytes")
+    return {name: dict(zip(keys, out[3 * k:3 * k + 3]))
+            for k, name in enumerate(_ATTRIBUTE_KERNELS)}
 
 
 def celerite_forward(A, U, V, P, y=None, save=False, want_w=True):

@@ -15,6 +15,14 @@ The bin is the contract, in float32, as in the TPU kernel::
 
 Every product and difference is rounded on its own in both versions, so
 the kernel and the plain version put every sample in the same bin.
+
+So is the sum. On the CPU, ``fold_onehot_plain`` adds each cell's
+samples with one ``index_add_`` in index order, [chunk, row, sample]: each
+cell is the float32 sum, from +0, of its samples in ascending sample
+order, each addition rounded on its own. The kernel sums in that order
+too, so on the same inputs it gives the CPU plain version's bits, and two
+of its launches give the same bits. (``index_add_`` on a CUDA tensor adds
+with atomics, in no fixed order.)
 """
 
 import ctypes
@@ -23,11 +31,10 @@ import torch
 
 __all__ = ["fold_onehot", "fold_onehot_plain", "fold_bins_onehot", "histogram_rows"]
 
-# a block of the kernel keeps two nv x nbins f32 histograms, one per
-# frequency in flight, in at most 227 KB (232448 bytes) of shared memory
-_HISTOGRAMS = 2
-_MAX_SMEM = 232448
-_MAX_CELLS = _MAX_SMEM // (_HISTOGRAMS * 4)
+# the kernel's limit on nv * n_phi * stride cells: past 2048 samples a
+# block carries every cell's f32 sum in shared memory from one tile of
+# samples to the next, beside the sort's ~33 KB, in 227 KB
+_MAX_CELLS = 29056
 # the plain version folds at most this many (period, row, sample) triples
 # per index_add_
 _PLAIN_TRIPLES = 1 << 24
@@ -112,9 +119,8 @@ def fold_onehot(t, values, freqs, n_phi, stride=1, offsets=None):
     nbins = n_phi * stride
     if nv * nbins > _MAX_CELLS:
         raise ValueError(
-            f"nv * n_phi * stride = {nv * nbins} cells do not fit the kernel's shared "
-            f"memory: a block's {_HISTOGRAMS} f32 histograms in {_MAX_SMEM} bytes allow "
-            f"at most {_MAX_CELLS}"
+            f"nv * n_phi * stride = {nv * nbins} cells; the kernel takes at most "
+            f"{_MAX_CELLS}"
         )
     if offsets is not None:
         if offsets.shape != (n,) or offsets.dtype.is_floating_point:

@@ -9,7 +9,8 @@ the blocks, then an associative scan of the block summaries and a stitch of
 every position. XLA fuses each step into one dispatch; eager PyTorch would
 pay ~150 launches for every step (the unrolled pivoted solve of a
 composition alone is most of them). So on a CUDA tensor the whole
-composition is one call of a hand-written kernel (``csrc/kalman.cu``), and
+composition is one call of a hand-written kernel (``csrc/kalman.cuh``, R
+= 1 to ``MAX_R`` states), and
 on a CPU tensor its plain version here. Both round every product, sum,
 difference and quotient on its own, in the same order, so they agree bit
 for bit.
@@ -350,7 +351,7 @@ def kalman_blocked(A, Q, H, diag, y, n_blocks, carry=None):
     b, n, r, _ = A.shape
     if not 1 <= r <= MAX_R:
         raise ValueError(f"the Kalman kernel takes 1 to {MAX_R} states (R), got {r}; a term "
-                         f"this wide runs only on CPU tensors")
+                         f"this wide runs only on CPU tensors, whose plain version takes any R")
     if b < 1 or n < 1:
         raise ValueError(f"kalman_blocked needs B, N >= 1, got {tuple(A.shape)}")
     dtype = A.dtype

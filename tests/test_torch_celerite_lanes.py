@@ -14,10 +14,10 @@ each row's update touching that row's coefficients only, and P's missing
 row n - 1 read as zeros. Numpy replays all three, one operation at a time
 in the kernels' order (numpy rounds every operation on its own, as
 ``__*_rn`` do), and the replays must equal the plain versions bit for bit:
-R = 1..8, float32 and float64, with and without y and the saved state, one
+R = 1..16, float32 and float64, with and without y and the saved state, one
 sample, one step, a row whose D goes non-positive, tiles cut at every edge.
 These tests check the designs' operation order, not the kernels: no line of
-``csrc/celerite.cu`` runs here. The kernels themselves are held against
+``csrc/celerite.cuh`` runs here. The kernels themselves are held against
 the plain versions bit for bit on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py`` phase 27).
 """

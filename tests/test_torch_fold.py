@@ -109,3 +109,48 @@ def test_cpu_wrapper_is_the_plain_version_in_chunks(sample, monkeypatch):
     chunked = fold_onehot_plain(tt, values, freqs, n_phi=12)
     np.testing.assert_array_equal(chunked.numpy(), whole.numpy())
     np.testing.assert_array_equal(whole[:, 0].sum(-1).numpy(), np.full(50, t.size))
+
+
+def _sequential_fold(t, values, periods, n_phi, stride=1, offsets=None):
+    """The fold contract in numpy: each sample's float32 bin, then each
+    cell summed from +0 in ascending sample order, one float32 addition at
+    a time (a loop over the samples, vectorized over periods and rows,
+    whose cells a sample touches once each)."""
+    t32 = (t - t[0]).astype(np.float32)
+    f = (1.0 / periods).astype(np.float32)
+    phi = t32[None, :] * f[:, None]
+    phi = phi - np.floor(phi)
+    pb = np.clip((phi * np.float32(n_phi)).astype(np.int32), 0, n_phi - 1)
+    bins = pb.astype(np.int64) * stride + (0 if offsets is None else offsets[None, :])
+    p, (nv, n) = periods.shape[0], values.shape
+    out = np.zeros((p, nv, n_phi * stride), np.float32)
+    rows, cols = np.arange(p)[:, None], np.arange(nv)[None, :]
+    for i in range(n):
+        cell = (rows, cols, bins[:, i:i + 1])
+        out[cell] = out[cell] + values[None, :, i]
+    return out
+
+
+@pytest.mark.parametrize("shape", ["aov", "ce"])
+def test_plain_fold_sums_each_cell_in_ascending_sample_order(shape):
+    """fold_onehot_plain on the CPU gives a sequential float32 loop's bits
+    at the AoV shape (3 rows of 9 bins, ~220 heavy-tailed samples a bin)
+    and the conditional-entropy shape (10 x 5 bins through offsets): the
+    order the CUDA kernel follows."""
+    rng = np.random.default_rng(16)
+    n = 2000
+    t = np.sort(rng.uniform(0, 1400.0, n))
+    x = rng.standard_cauchy(n)
+    periods = np.linspace(2.0, 20.0, 40)
+    if shape == "aov":
+        values = np.stack([np.ones(n), x, x * x]).astype(np.float32)
+        kw = dict(n_phi=9)
+    else:
+        values = rng.standard_normal((1, n)).astype(np.float32)
+        kw = dict(n_phi=10, stride=5, offsets=rng.integers(0, 5, n))
+    want = _sequential_fold(t, values, periods, **kw)
+    off = kw.pop("offsets", None)
+    got = fold_onehot_plain(torch.from_numpy(t), torch.from_numpy(values),
+                            torch.from_numpy(1.0 / periods), offsets=None if off is None
+                            else torch.from_numpy(off), **kw).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))

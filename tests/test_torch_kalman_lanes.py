@@ -44,6 +44,10 @@ from periodicity_tpu_torch.ops import kalman as K
 SHAPES = [(2, 3, 1), (1, 1, 1), (2, 6, 2), (1, 7, 2), (1, 1, 2), (1, 23, 3), (2, 9, 3),
           (2, 10, 5), (1, 13, 5), (1, 4, 5), (1, 32, 16), (2, 35, 16), (1, 9, 16), (1, 78, 39),
           (1, 80, 39), (1, 20, 39), (1, 128, 64), (1, 130, 64), (2, 63, 64)]
+# past R = 8 (16 lanes a group) the same cuts at shorter lengths, so the
+# replay keeps to seconds: N divisible, not, and below the block count
+SHAPES_WIDE = [(2, 3, 1), (1, 1, 2), (2, 9, 3), (1, 13, 5), (1, 9, 16), (2, 35, 16),
+               (1, 20, 39)]
 
 
 def _bits(a, b):
@@ -341,10 +345,10 @@ def _blocked_lanes(A, Q, H, diag, y, nb, carry):
 
 @pytest.mark.parametrize("with_carry", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("r", range(1, 9))
+@pytest.mark.parametrize("r", range(1, K.MAX_R + 1))
 def test_k1_lane_order_is_the_plain_order(r, dtype, with_carry):
     rng = np.random.default_rng(100 + r)
-    for b, n, nb in SHAPES:
+    for b, n, nb in SHAPES if r <= 8 else SHAPES_WIDE:
         coeffs, dt, A, Q, H, diag, y = k1_draw(rng, r, b, n, dtype)
         carry = None
         if with_carry:
