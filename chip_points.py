@@ -20,12 +20,25 @@ With that checkout's package and ``chip_smoke.py`` helpers it times:
   at config 7's blocked points, N = 1e4 over 39 blocks and N = 1e5 over
   390, and at its chunked shape (the second chunk of the N = 1e6 series,
   65536 samples over 512 blocks, from the first chunk's carry): events over
-  10 and the profiler's device time by stage over 3.
+  10 and the profiler's device time by stage over 3;
+- R2 (``pentadiagonal_solve``) on SpottedStar's smoothing-spline system at
+  lam = 1 (m = 2146) in float64 and float32, and R1 (``sosfilt``) over
+  SpottedStar's float64 odd extension in the GP prior's band (5 sections,
+  2214 steps) at 1 row and at 64: the profiler's device time a launch over
+  10 and events over 20;
+- one ``TSeries.interp(method="spline", s=...)`` on SpottedStar (float64):
+  wall time (median of 3), R2 launches, and R2's share of a profiled call's
+  wall time; one GP-prior ACF ladder (``acf_period_quality`` at every
+  default cutoff, float64): wall time (median of 3) and R1 launches.
 
-It prints one JSON line: LABEL, the card and each point's times. To compare
-two commits on one card, unpack the other with ``git archive`` into a
-git-ignored directory and run this file from each root in turns (parent,
-change, change, parent) in one call.
+    python3 chip_points.py LABEL [GROUP ...]
+
+runs the groups named (``fold``, ``celerite``, ``kalman``, ``recursions``;
+all by default). It prints one JSON line: LABEL, the card and each point's
+times. To compare two commits on one card, unpack the other with ``git
+archive`` into a git-ignored directory and run this file from each root in
+turns (parent, change, change, parent) in one call; it uses only entry
+points both sides have.
 """
 
 import json
@@ -132,15 +145,75 @@ def kalman_points(dev, out):
         out[label] = {"ms": ms, "device_ms": sum(stages.values()), "stages": stages}
 
 
+def recursion_points(dev, out):
+    import time
+
+    from periodicity_tpu_torch import TSeries
+    from periodicity_tpu_torch.data import SpottedStar
+    from periodicity_tpu_torch.ops import filters, spline
+
+    t, y, dy = SpottedStar()
+    tt, yy = torch.from_numpy(t).to(dev), torch.from_numpy(y).to(dev)
+    (main, off1, off2), (q0, q1, q2), _ = spline._reinsch_system(tt, 1.0)
+    rhs = spline._qt_apply(q0, q1, q2, yy)
+    for dtype, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+        bands = [v.to(dtype) for v in (main, off1, off2, rhs)]
+        fn = lambda: spline._pentadiagonal_solve(*bands)  # noqa: E731
+        fn()
+        out[f"r2_{name}_device_ms"] = cs.device_us(fn, "pentadiagonal_kernel", 10) / 1e3
+        out[f"r2_{name}_ms"] = cs.event_ms(fn, 20)
+    median_dt = float(np.median(np.diff(t)))
+    p_min = max(cs.LADDER.min() / 10, 3 * median_dt)
+    nyq = 0.5 / median_dt
+    sos = filters.butter_sos(5, [(1 / 32) / nyq, (1 / p_min) / nyq], "bandpass")
+    edge = filters._padlen(sos)
+    ext = torch.cat([2 * yy[0] - torch.flip(yy[1:edge + 1], (0,)), yy,
+                     2 * yy[-1] - torch.flip(yy[-(edge + 1):-1], (0,))])
+    rows = ext + torch.from_numpy(np.random.default_rng(1).standard_normal((64, 1))).to(dev)
+    for key, x in (("r1", ext), ("r1_b64", rows)):
+        fn = lambda: filters.sosfilt(sos, x)  # noqa: E731
+        fn()
+        out[f"{key}_device_ms"] = cs.device_us(fn, "sosfilt_kernel", 10) / 1e3
+        out[f"{key}_ms"] = cs.event_ms(fn, 20)
+
+    def wall(fn):
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    ts = TSeries(tt, yy)
+    new_t = np.linspace(t[0] - 0.5, t[-1] + 0.5, 3001)
+    interp = lambda: ts.interp(new_t, method="spline", s=float(np.sum(dy**2)))  # noqa: E731
+    before = spline._pentadiagonal_solve.launches
+    out["interp_s"] = wall(interp)
+    out["interp_r2_launches"] = (spline._pentadiagonal_solve.launches - before) // 4
+    work, one = cs.profiled(interp)
+    out["interp_r2_share"] = sum(us for n, us in work if "pentadiagonal_kernel" in n) / 1e6 / one
+    cutoffs = [p for p in cs.LADDER if p_min < p < (t[-1] - t[0]) / 2]
+    ladder = lambda: [ts.acf_period_quality(p_min, p) for p in cutoffs]  # noqa: E731
+    before = filters.sosfilt.launches
+    out["ladder_s"] = wall(ladder)
+    out["ladder_r1_launches"] = (filters.sosfilt.launches - before) // 4
+
+
+GROUPS = {"fold": fold_points, "celerite": celerite_points, "kalman": kalman_points,
+          "recursions": recursion_points}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_points.py needs a CUDA device")
     dev = torch.device("cuda", 0)
     out = {"label": sys.argv[1] if len(sys.argv) > 1 else "",
            "card": torch.cuda.get_device_name(0)}
-    fold_points(dev, out)
-    celerite_points(dev, out)
-    kalman_points(dev, out)
+    for name in sys.argv[2:] or GROUPS:
+        GROUPS[name](dev, out)
     print(json.dumps(out))
 
 

@@ -69,7 +69,12 @@ kernels, and checks every phase:
    SpottedStar's Butterworth pass (the GP prior's band for p_max = 32),
    the pentadiagonal solve at m = 2146 in float64 and float32; their event,
    device and plain times, a dense ``torch.linalg.solve`` of the same
-   system, and their bounds (bytes or the dependency chain);
+   system, and their bounds (bytes or the dependency chain); the filter at
+   1, 5 and 16 sections over 1, 7 and 64 rows, the solve held in shared
+   memory and past it (up to m = 1e5) and on its zero-pivot system, the
+   solve's checked quotient against the division on the card (hashed,
+   binade-edge, special and the system's own operand pairs), and both
+   kernels' local memory (0 bytes);
 18. config 2 on SpottedStar (N = 2148, float32): ``TSeries.acf()`` then a
    boxcar smooth, and B = 256 rows through rfft/irfft and ``convolve1d``:
    acfs/s, device busy share, peak memory, card against CPU;
@@ -169,7 +174,7 @@ kernels, and checks every phase:
    chains, depth 6, 40 steps after 60 warmup: grad-evals/s, divergences,
    min ESS, max R-hat, launches a leapfrog, busy share; 2, 8 and 16 chains
    at depth 4), ``BrownianGP.nuts`` on the JAX package's synthetic rotator
-   with its assertions (2 chains of 150 steps after 200 of warmup, cut
+   with its assertions (2 chains of 110 steps after 200 of warmup, cut
    from its 300 + 300 for time), the modelers' pscan, blocked and chunked solvers
    against the scan on SpottedStar, and ``QuasiPeriodicGP.nuts``. Phases
    32-33 are this slice's main path: the counts of K1, G1 and G2 are
@@ -1625,6 +1630,33 @@ def held(kernel, plain, dtype):
     return "1e-12 relative"
 
 
+def penta_quotient_pairs(main, off1, off2, rhs, dtype):
+    """The (numerator, divisor) pairs the pentadiagonal factor divides, in
+    ``dtype``, in the plain version's order (``ops/spline.py``'s
+    ``_pentadiagonal_rows``): each row's beta and alpha over a nonzero
+    pivot and its z over its own pivot. Two CPU tensors."""
+    import torch
+
+    np_t = np.float64 if dtype == torch.float64 else np.float32
+    a, r = main.cpu().numpy().astype(np_t), rhs.cpu().numpy().astype(np_t)
+    b = np.concatenate([[0], off1.cpu().numpy()]).astype(np_t)
+    c = np.concatenate([[0, 0], off2.cpu().numpy()]).astype(np_t)
+    zero = np_t(0)
+    nums, dens = [], []
+    D1 = D2 = al1 = z1 = z2 = zero
+    with np.errstate(all="ignore"):
+        for i in range(a.shape[0]):
+            be = c[i] / D2 if D2 != 0 else zero
+            num = b[i] - be * al1 * D2
+            al = num / D1 if D1 != 0 else zero
+            D = a[i] - al * al * D1 - be * be * D2
+            z = r[i] - al * z1 - be * z2
+            nums += [c[i], num, z] if D2 != 0 and D1 != 0 else [z]
+            dens += [D2, D1, D] if D2 != 0 and D1 != 0 else [D]
+            D1, D2, al1, z1, z2 = D, D1, al, z, z1
+    return torch.from_numpy(np.array(nums, np_t)), torch.from_numpy(np.array(dens, np_t))
+
+
 def plain_wall_ms(fn):
     """Wall time of one call of a plain version on card tensors (the host
     loop and its copies), synchronised."""
@@ -1635,6 +1667,92 @@ def plain_wall_ms(fn):
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def recursion_shapes(dev, n_ext, sos5, system):
+    """Phase 17's shapes past the main path's: R1 at 1, 5 and 16 sections
+    over 1, 7 and 64 rows, R2 held in shared memory and streamed past it
+    and on its zero-pivot system, both bit-equal to their plain versions;
+    the checked quotient against the division; the kernels' resources."""
+    import torch
+
+    from periodicity_tpu_torch.ops import _kernels, filters, spline
+
+    rng = np.random.default_rng(17)
+    out = {"sosfilt": {}, "pentadiagonal": {}}
+    sos16 = filters.butter_sos(16, [0.02, 0.4], "bandpass")
+    for ns in (1, 5, 16):
+        sos = sos5 if ns == 5 else sos16[:ns]
+        for rows in (1, 7, 64):
+            n = n_ext if rows < 64 or ns == 5 else 400
+            x = torch.from_numpy(rng.standard_normal((rows, n))).to(dev)
+            zi = torch.from_numpy(rng.standard_normal((rows, ns, 2))).to(dev)
+            y, zf = filters.sosfilt(sos, x, zi)
+            yp, zp = filters.sosfilt_plain(sos, x, zi)
+            torch.cuda.synchronize()
+            check(torch.equal(y, yp) and torch.equal(zf, zp),
+                  f"sosfilt kernel bit-equal at {ns} sections, {rows} rows x {n}")
+            ms = event_ms(lambda: filters.sosfilt(sos, x, zi), 10)
+            out["sosfilt"][f"ns{ns}_rows{rows}_n{n}_ms"] = ms
+            if ns == 5 and rows == 64:
+                out["sosfilt_b64_ms"] = ms
+    caps = {dt: spline.pentadiagonal_capacity(dt) for dt in (torch.float64, torch.float32)}
+    out["pentadiagonal"]["capacity_rows"] = {"float64": caps[torch.float64],
+                                             "float32": caps[torch.float32]}
+    for dt, ms_ in ((torch.float64, (5000, caps[torch.float64] + 1, 100_000)),
+                    (torch.float32, (9000, caps[torch.float32] + 1))):
+        for m in ms_:
+            bands = [torch.from_numpy(v).to(dev, dt) for v in (
+                4.0 + rng.uniform(0, 1, m), rng.uniform(-1, 1, m - 1),
+                rng.uniform(-0.5, 0.5, m - 2), rng.standard_normal(m))]
+            got = spline._pentadiagonal_solve(*bands)
+            ref = spline.pentadiagonal_solve_plain(*bands)
+            torch.cuda.synchronize()
+            where = "shared memory" if m <= caps[dt] else "streamed"
+            check(torch.equal(got, ref),
+                  f"pentadiagonal kernel bit-equal at m = {m} ({dt}, {where})")
+            key = f"{'f32_' if dt == torch.float32 else ''}m{m}_ms"
+            out["pentadiagonal"][key] = event_ms(lambda: spline._pentadiagonal_solve(*bands), 5)
+    zp = [[0.0, 2.0, 3.0, 4.0, 0.0, 5.0], [1.0, 0.5, 0.25, 0.5, 1.0], [0.5, 0.25, 0.5, 0.1],
+          [1.0, 2.0, 3.0, 4.0, 5.0, 6.0]]
+    for dt in (torch.float64, torch.float32):
+        bands = [torch.tensor(v, dtype=dt, device=dev) for v in zp]
+        got = spline._pentadiagonal_solve(*bands).cpu()
+        ref = spline.pentadiagonal_solve_plain(*bands).cpu()
+        check(not bool(torch.isfinite(ref).all()) and torch.equal(got.nan_to_num(7.0),
+                                                                  ref.nan_to_num(7.0)),
+              f"pentadiagonal kernel on the zero-pivot system ({dt})")
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out["quotient"] = {}
+    for dt, fn in ((torch.float32, lib.recursions_quot_check_f32),
+                   (torch.float64, lib.recursions_quot_check_f64)):
+        a, d = (v.to(dev) for v in penta_quotient_pairs(*system, dt))
+        counts = {}
+        for mode, n in ((0, 1 << 30), (1, 1 << 30), (2, 6 * 2046 * 256), (3, 6 * 2046 * 4),
+                        (4, 1 << 26), (5, a.numel())):
+            cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+            check(fn(n, mode, a.data_ptr(), d.data_ptr(), cnt.data_ptr(), stream) == 0,
+                  "quotient check launch")
+            bad, fast = cnt.tolist()
+            check(bad == 0, f"checked quotient {dt} mode {mode}: {bad} of {n} pairs differ")
+            counts[mode] = {"pairs": n, "fast": fast}
+        out["quotient"][str(dt).split(".")[1]] = counts
+    out["attributes"] = {}
+    for dt in (torch.float64, torch.float32):
+        attrs = {"pentadiagonal": spline.kernel_attributes(dt),
+                 **{f"sosfilt_w{w}": a for w, a in filters.kernel_attributes(dt).items()}}
+        check(all(a["local_bytes"] == 0 for a in attrs.values()),
+              f"recursion kernels' local memory {dt}: {attrs}")
+        out["attributes"][str(dt).split(".")[1]] = {k: a["registers"] for k, a in attrs.items()}
+    print(f"phase 17 redesign shapes: sosfilt bit-equal at 1/5/16 sections x 1/7/64 rows "
+          f"(B = 64, 5 sections: {out['sosfilt_b64_ms']:.4f} ms); pentadiagonal bit-equal in "
+          f"shared memory and streamed (capacity {caps[torch.float64]} / "
+          f"{caps[torch.float32]} rows; m = 1e5 f64 "
+          f"{out['pentadiagonal']['m100000_ms']:.3f} ms) and on the zero-pivot system; "
+          f"checked quotient = division on every pair; 0 B local memory, registers "
+          f"{out['attributes']}")
+    return out
 
 
 def container_slice(dev, card, cuda):
@@ -1744,6 +1862,9 @@ def container_slice(dev, card, cuda):
               f"{rec[prefix + 'plain_ms']:.3f} ms, dense torch.linalg.solve "
               f"{rec[prefix + 'library_ms']:.4f} ms, bound {rec[prefix + 'bound_ms']:.4f} ms "
               f"({rec[prefix + 'bound_by']})  ({card})")
+    out["recursions"] = recursion_shapes(dev, n_ext, sos, (main64, off1, off2, rhs64))
+    sos_rec["redesigned"] = penta_rec["redesigned"] = 17
+    sos_rec["b64_ms"] = out["recursions"]["sosfilt_b64_ms"]
     t17 = time.perf_counter()
 
     # the main path of this slice: phases 18-20, counted from zero
@@ -3502,12 +3623,14 @@ C13_CHAINS, C13_DEPTH, C13_STEPS, C13_WARMUP = 4, 6, 40, 60
 C13_SCALING = (2, 8, 16)
 # the JAX package's NUTS checks on its synthetic rotator (tests/test_nuts.py:
 # 76-129): BrownianGP.nuts and QuasiPeriodicGP.nuts on every third sample;
-# the rotator's chains cut from 300 + 300 steps to 150 + 200 (the run is
-# host-bound, ~0.4-0.7 s a step, and the smoke has 1200 s), the checks
+# the rotator's chains cut from 300 + 300 steps to 110 + 200 and the
+# quasi-periodic model's from 100 + 150 to 75 + 150 (the runs are
+# host-bound, ~0.4-0.9 s a step, and the smoke has 1200 s; the same warmup
+# and seeds, so each chain is a prefix of the longer one), the checks
 # unchanged
-ROTATOR_NUTS = dict(n_chains=2, n_steps=150, n_warmup=200, burn=50, max_depth=6,
+ROTATOR_NUTS = dict(n_chains=2, n_steps=110, n_warmup=200, burn=50, max_depth=6,
                     random_seed=42)
-QP_NUTS = dict(n_chains=2, n_steps=100, n_warmup=150, burn=25, max_depth=5, random_seed=0)
+QP_NUTS = dict(n_chains=2, n_steps=75, n_warmup=150, burn=25, max_depth=5, random_seed=0)
 # the JAX package's float32 characterization of the scan against float64
 # (tests/test_gp.py:199-233, at N <= 8192), held at N = 1e4. Beyond it the
 # float32 scan of either package exceeds it (ROADMAP C5), so a longer series
@@ -3886,8 +4009,31 @@ def kalman_slice(dev, card, cuda):
     k1_timed("chunk_", A, Q, H, d, yb, C7_INNER, carry,
              f"config 7's chunk (1 row, R=4, N={C7_CHUNK}, {C7_INNER} blocks, from a carry, "
              "f32)")
-    rec["chunk_library_ms"] = None
     del A, Q, d, yb, carry
+    # its yardstick: one dense cholesky_ex + solve_triangular of the chunk's
+    # own K (65536 samples, 17 GB in f32; not conditioned on the carry),
+    # built a band of rows at a time
+    torch.cuda.empty_cache()
+    with torch.no_grad(), full_float32():
+        tc_, yc_ = tt[C7_CHUNK:], yy[C7_CHUNK:]
+        Kd = torch.empty((C7_CHUNK, C7_CHUNK), dtype=tc_.dtype, device=dev)
+        for i0 in range(0, C7_CHUNK, 4096):
+            Kd[i0:i0 + 4096] = term.get_value(tc_[i0:i0 + 4096, None] - tc_[None, :])
+        Kd.diagonal().add_(0.01)
+
+        def chunk_lib():
+            L, info = torch.linalg.cholesky_ex(Kd)
+            return info, torch.linalg.solve_triangular(L, yc_[:, None], upper=False)
+
+        info, _ = chunk_lib()
+        torch.cuda.synchronize()
+        rec["chunk_library_ms"] = event_ms(chunk_lib, 1)
+        rec["chunk_library_info"] = int(info)
+    del Kd
+    torch.cuda.empty_cache()
+    print(f"phase 31 K1 chunk yardstick: dense cholesky_ex + solve_triangular of the chunk's "
+          f"own K ({C7_CHUNK} samples, f32) {rec['chunk_library_ms']:.1f} ms (info "
+          f"{rec['chunk_library_info']})  ({card})")
     for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
         rec[key] = rec[f"N{C7_SOLVER_NS[0]}_{key}"]
     rec["shape"] = ("config 7's blocked points, one row, live BrownianTerm (R = 4), f32: "
@@ -4090,7 +4236,8 @@ def kalman_slice(dev, card, cuda):
           and 0.3 < q.acceptance <= 1.0 and np.all((ratio > 1.0) & (ratio < 10.0)),
           f"QuasiPeriodicGP.nuts: shape {samples.shape}, acceptance {q.acceptance}")
     out["qpgp_nuts"] = {"seconds": s_q, "acceptance": q.acceptance}
-    print(f"phase 33 QuasiPeriodicGP.nuts (2 chains, 100 + 150, depth 5): acceptance "
+    print(f"phase 33 QuasiPeriodicGP.nuts (2 chains, {QP_NUTS['n_steps']} + "
+          f"{QP_NUTS['n_warmup']}, depth 5): acceptance "
           f"{q.acceptance:.3f}, tau/period in (1, 10) ({s_q:.1f} s)  ({card})")
     t33 = time.perf_counter()
     launches = {"kalman_blocked": K.kalman_blocked.launches,
@@ -4729,6 +4876,45 @@ def wide_term(w, kind):
                               Q0=0.5 * w[..., 7], dQ=0.5 * w[..., 8], f=0.3 * w[..., 9])
 
 
+def dense_gp_yardsticks(term, tt, diag, y, Y):
+    """The celerite kernels' "one PyTorch call" on the walkers' systems, by
+    CUDA events (ms): G1's, one batched ``cholesky_ex`` + ``solve_triangular``
+    of the walkers' dense K [b, n, n] and y; G2's, autograd's backward
+    through that log-likelihood, from K and y; G3's, one ``cholesky_solve``
+    of walker 0's system (factored outside the call) at Y's columns and at
+    one. Returns (g1, g2, g3, g3_k1, walkers the dense Cholesky could not
+    factor)."""
+    import torch
+
+    tau = tt[:, None] - tt[None, :]
+    with torch.no_grad():
+        Kb = term.get_value(tau) + torch.diag(diag)
+
+    def factor(K, yy):
+        L, info = torch.linalg.cholesky_ex(K)
+        return L, info, torch.linalg.solve_triangular(L, yy[..., None], upper=False)
+
+    with torch.no_grad():
+        factor(Kb, y)
+        g1 = event_ms(lambda: factor(Kb, y), 3)
+    Kg, yg = Kb.clone().requires_grad_(True), y.detach().clone().requires_grad_(True)
+    L, info, z = factor(Kg, yg)
+    ll = -0.5 * (z[..., 0].square().sum(-1)
+                 + 2 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1))
+    total = torch.where(info == 0, ll, 0).sum()
+    g2 = event_ms(lambda: torch.autograd.grad(total, (Kg, yg), retain_graph=True), 3)
+    failed = int((info != 0).sum())
+    del Kg, yg, L, z, ll, total
+    with torch.no_grad():
+        L0, _ = torch.linalg.cholesky_ex(Kb[0])
+        y1 = Y[:, :1].contiguous()
+        g3 = event_ms(lambda: torch.cholesky_solve(Y, L0), 5)
+        g3_k1 = event_ms(lambda: torch.cholesky_solve(y1, L0), 20)
+    del Kb, L0
+    torch.cuda.empty_cache()
+    return g1, g2, g3, g3_k1, failed
+
+
 def term_width(term):
     ar, _, ac = term.coefficients()[:3]
     return ar.shape[-1] + 2 * ac.shape[-1]
@@ -4968,6 +5154,13 @@ def wide_slice(dev, card, cuda, kernels):
                     nbytes, chain, dname, clock_hz)
                 rec[f"{pre}local_bytes"], rec[f"{pre}registers"] = (att["local_bytes"],
                                                                    att["registers"])
+            g1l, g2l, g3l, g3l1, failed = dense_gp_yardsticks(term, tt, diag,
+                                                             yy.expand(b, n).contiguous(), Y)
+            recs["celerite_forward"][f"{pre}library_ms"] = g1l
+            recs["celerite_forward"][f"{pre}library_failed_rows"] = failed
+            recs["celerite_adjoint"][f"{pre}library_ms"] = g2l
+            recs["celerite_solve"][f"{pre}library_ms"] = g3l
+            recs["celerite_solve"][f"{pre}k1_library_ms"] = g3l1
             rec = recs["celerite_solve"]
             rec[f"{pre}k1_ms"] = event_ms(g31, 10)
             rec[f"{pre}k1_device_ms"] = device_us(g31, "celerite_solve_kernel", 3) / 1e3
@@ -4982,7 +5175,10 @@ def wide_slice(dev, card, cuda, kernels):
                               f"{recs[nm][pre + 'registers']} registers)"
                               for nm in ("celerite_forward", "celerite_adjoint", "celerite_solve"))
                   + f"; G3 K=1 {recs['celerite_solve'][pre + 'k1_ms']:.4f} ms (device "
-                  f"{recs['celerite_solve'][pre + 'k1_device_ms']:.4f})  ({card})")
+                  f"{recs['celerite_solve'][pre + 'k1_device_ms']:.4f}); dense yardsticks: "
+                  f"batched cholesky_ex + solve_triangular {g1l:.4f} ms ({failed} walkers not "
+                  f"factored), its autograd backward {g2l:.4f} ms, cholesky_solve K={n} "
+                  f"{g3l:.4f} ms, K=1 {g3l1:.4f} ms  ({card})")
 
     # K1 at config 7's N = 1e5 blocked point (one row, 390 blocks, f32) at
     # R = 12 and 16: bit-equal to plain, events, device, plain, chain bound

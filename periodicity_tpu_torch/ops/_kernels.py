@@ -52,9 +52,18 @@ ENTRY_POINTS = {
     # coef (host memory), x, zi, n, ns, rows, y, zf, stream
     "sosfilt_f32": [_P] * 3 + [_I] * 3 + [_P] * 3,
     "sosfilt_f64": [_P] * 3 + [_I] * 3 + [_P] * 3,
-    # main, off1, off2, rhs, m, scratch, out, stream
+    # main, off1, off2, rhs, m, scratch [2m], out, stream
     "pentadiagonal_solve_f32": [_P] * 4 + [_I] + [_P] * 3,
     "pentadiagonal_solve_f64": [_P] * 4 + [_I] + [_P] * 3,
+    # element size -> rows a solve holds in shared memory on the current card
+    "pentadiagonal_capacity": [_I],
+    # pairs, mode, a, d (mode 5), unsigned long long[2] out, stream: the
+    # solve's checked quotient against __fdiv_rn / __ddiv_rn (a card test)
+    "recursions_quot_check_f32": [ctypes.c_ulonglong, _I] + [_P] * 4,
+    "recursions_quot_check_f64": [ctypes.c_ulonglong, _I] + [_P] * 4,
+    # element size, int[18] out: local memory, registers and shared memory of
+    # the solve and of the filter at 1, 2, 4, 8, 16 lanes a row
+    "recursions_kernel_attributes": [_I, _P],
     # t, Y, n, b, max_modes, max_iter, pad_width, theta_1, theta_2, imf_limit,
     # modes, residue, cur, kmode, units, scratch, stream
     "emd_sift_f32": [_P] * 2 + [_I] * 5 + [_D] * 2 + [_I] + [_P] * 7,
@@ -246,3 +255,15 @@ def _on_cpu(x):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     return x.device.type == "cpu"
+
+
+def _recursion_attributes(dtype):
+    """Local memory and registers a thread and static shared memory a block
+    of each kernel in ``csrc/recursions.cu`` on the current card: the
+    pentadiagonal solve, then the filter at 1, 2, 4, 8 and 16 lanes a row."""
+    out = (ctypes.c_int * 18)()
+    err = load().recursions_kernel_attributes(torch.empty((), dtype=dtype).element_size(), out)
+    if err != 0:
+        raise RuntimeError(f"recursions_kernel_attributes failed: cudaError {err}")
+    keys = ("local_bytes", "registers", "shared_bytes")
+    return [dict(zip(keys, out[3 * i:3 * i + 3])) for i in range(6)]

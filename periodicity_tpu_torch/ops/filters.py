@@ -429,6 +429,16 @@ def sosfilt(sos, x, zi=None):
 sosfilt.launches = 0
 
 
+def kernel_attributes(dtype):
+    """The filter kernel's compiled resources in ``dtype`` on the current
+    card, by its group width (1, 2, 4, 8, 16 lanes a row): ``local_bytes``
+    of local memory and ``registers`` a thread, static ``shared_bytes`` a
+    block."""
+    from ._kernels import _recursion_attributes
+
+    return dict(zip((1, 2, 4, 8, 16), _recursion_attributes(dtype)[1:]))
+
+
 def _padlen(sos):
     """scipy's default odd-extension length of ``sosfiltfilt`` for ``sos``."""
     sos = np.asarray(sos, float)

@@ -421,6 +421,28 @@ def _pentadiagonal_solve(main, off1, off2, rhs):
 _pentadiagonal_solve.launches = 0
 
 
+def kernel_attributes(dtype):
+    """The solve kernel's ``local_bytes`` of local memory and ``registers``
+    a thread and static ``shared_bytes`` a block in ``dtype``, as the runtime
+    reports them on the current card (its ring of tiles is dynamic shared
+    memory, sized by :func:`pentadiagonal_capacity`)."""
+    from ._kernels import _recursion_attributes
+
+    return _recursion_attributes(dtype)[0]
+
+
+def pentadiagonal_capacity(dtype):
+    """Rows of a system that the solve kernel keeps in shared memory from
+    the first load to the store of x on the current card; a larger system
+    streams its tiles through the global scratch."""
+    from ._kernels import load
+
+    rows = load().pentadiagonal_capacity(torch.empty((), dtype=dtype).element_size())
+    if rows < 0:
+        raise RuntimeError(f"pentadiagonal_capacity failed: cudaError {-rows}")
+    return rows
+
+
 def smoothing_spline_eval(x, f, gamma, xnew):
     """Evaluate the natural cubic spline with knot values f and second
     derivatives gamma at xnew. Beyond the data range the edge segment's

@@ -507,39 +507,95 @@ def test_rest_of_spectral_on_card_matches_cpu(cuda, case):
 # -- the container slice: recursion kernels, C1, the surface, TF32 ------------
 
 
-def _filter_case(n, rows, dtype, seed=0):
+def _filter_case(n, rows, dtype, seed=0, ns=5):
+    """Order-5 bandpass sections (the GP prior's shape) for ns = 5, else the
+    first ns sections of an order-16 bandpass cascade."""
     rng = np.random.default_rng(seed)
-    sos = filters.butter_sos(5, [0.02, 0.4], "bandpass")
+    sos = (filters.butter_sos(5, [0.02, 0.4], "bandpass") if ns == 5
+           else filters.butter_sos(16, [0.02, 0.4], "bandpass")[:ns])
     x = torch.from_numpy(rng.standard_normal((rows, n))).to(dtype)
     zi = torch.from_numpy(rng.standard_normal((rows, sos.shape[0], 2))).to(dtype)
     return sos, x, zi
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n,rows", [(2214, 1), (17, 3), (1, 1), (0, 2), (9, 40)])
-def test_sosfilt_kernel_matches_plain_bit_for_bit(cuda, dtype, n, rows):
-    sos, x, zi = _filter_case(n, rows, dtype)
+def _sosfilt_held(sos, x, zi, cuda):
     before = filters.sosfilt.launches
     y, zf = filters.sosfilt(sos, x.to(cuda), zi.to(cuda))
     yp, zp = filters.sosfilt_plain(sos, x, zi)
     torch.cuda.synchronize()
     assert filters.sosfilt.launches == before + 1
-    assert y.device.type == "cuda" and y.dtype == dtype
+    assert y.device.type == "cuda" and y.dtype == x.dtype
     assert torch.equal(y.cpu(), yp) and torch.equal(zf.cpu(), zp)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("m", [2146, 1, 2, 3, 17])
-def test_pentadiagonal_kernel_matches_plain_bit_for_bit(cuda, dtype, m):
+@pytest.mark.parametrize("ns", [1, 2, 5, 8, 16])
+@pytest.mark.parametrize("n,rows", [(2214, 1), (17, 3), (1, 1), (0, 2), (9, 40), (300, 7),
+                                    (300, 64)])
+def test_sosfilt_kernel_matches_plain_bit_for_bit(cuda, dtype, n, rows, ns):
+    """A group of lanes a row, a lane a section (ns = 1..16: 1 to 16 lanes),
+    rows that fill a warp or not, every chunk steady or on a ramp."""
+    _sosfilt_held(*_filter_case(n, rows, dtype, ns=ns), cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ns", [1, 2, 5, 8, 16])
+def test_sosfilt_kernel_ramp_longer_than_the_row(cuda, dtype, ns):
+    """n = 1..ns + 1: the systolic ramp ((ns - 1) * lag ticks) is as long as
+    the row or longer, so no chunk is steady and the last section starts
+    after the first has finished."""
+    for n in range(1, ns + 2):
+        _sosfilt_held(*_filter_case(n, 7, dtype, seed=n, ns=ns), cuda)
+
+
+def _spd_bands(m, dtype):
     rng = np.random.default_rng(m)
-    bands = [torch.from_numpy(v).to(dtype) for v in (
+    return [torch.from_numpy(v).to(dtype) for v in (
         4.0 + rng.uniform(0, 1, m), rng.uniform(-1, 1, m - 1) if m > 1 else np.zeros(0),
         rng.uniform(-0.5, 0.5, m - 2) if m > 2 else np.zeros(0), rng.standard_normal(m))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [2146, 1, 2, 3, 17, 128, 129, 5000, 9000, (1, -1), (1, 0), (1, 1),
+                               (3, 5), 100_000])
+def test_pentadiagonal_kernel_matches_plain_bit_for_bit(cuda, dtype, m):
+    """Systems held in shared memory (up to the capacity the card reports)
+    and past it (the tiles stream through the global scratch), up to 1e5;
+    (k, j) is k times the capacity plus j."""
+    if isinstance(m, tuple):
+        m = m[0] * spline.pentadiagonal_capacity(dtype) + m[1]
+    bands = _spd_bands(m, dtype)
     before = spline._pentadiagonal_solve.launches
     got = spline._pentadiagonal_solve(*(b.to(cuda) for b in bands))
     torch.cuda.synchronize()
     assert spline._pentadiagonal_solve.launches == before + 1
     assert torch.equal(got.cpu(), spline.pentadiagonal_solve_plain(*bands))
+
+
+def test_pentadiagonal_capacity(cuda):
+    """The ring holds 56 tiles of 128 rows in float64 and 112 in float32
+    (four arrays in place, up to 227 KB a block on an H100)."""
+    caps = [spline.pentadiagonal_capacity(dt) for dt in (torch.float64, torch.float32)]
+    assert caps[0] % 128 == 0 and caps[1] % 128 == 0 and caps[1] >= 2 * caps[0] - 128
+    if "H100" in torch.cuda.get_device_name(cuda):
+        assert caps == [56 * 128, 112 * 128]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pentadiagonal_kernel_signed_zeros(cuda, dtype):
+    """Zero right-hand sides of both signs and negative pivots: the zeros'
+    signs through the factor, the quotients and both substitutions."""
+    for seed in range(40):
+        rng = np.random.default_rng(seed)
+        m = int(rng.integers(3, 9))
+        bands = [torch.from_numpy(v).to(dtype) for v in (
+            np.where(rng.uniform(size=m) < 0.5, -4.0, 4.0),
+            rng.choice([0.0, -0.0, 0.5, -0.5], m - 1), rng.choice([0.0, -0.0, 0.25], m - 2),
+            rng.choice([0.0, -0.0], m))]
+        got = spline._pentadiagonal_solve(*(b.to(cuda) for b in bands)).cpu()
+        ref = spline.pentadiagonal_solve_plain(*bands)
+        assert torch.equal(got.view(torch.int64 if dtype == torch.float64 else torch.int32),
+                           ref.view(torch.int64 if dtype == torch.float64 else torch.int32)), seed
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -553,6 +609,42 @@ def test_pentadiagonal_kernel_zero_pivot_path(cuda, dtype):
     ref = spline.pentadiagonal_solve_plain(*bands)
     assert not bool(torch.isfinite(ref).all())
     assert torch.equal(got.nan_to_num(7.0), ref.nan_to_num(7.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_recursion_kernels_use_no_local_memory(cuda, dtype):
+    """The solve's walker and stagers and the filter at every group width
+    keep their state in registers: 0 bytes of local memory."""
+    attrs = [spline.kernel_attributes(dtype), *filters.kernel_attributes(dtype).values()]
+    assert len(attrs) == 6
+    for a in attrs:
+        assert a["local_bytes"] == 0 and 0 < a["registers"] <= 255, attrs
+
+
+def test_recursion_quotient_is_ddiv_rn(cuda):
+    """The solve's checked quotient (csrc/rn.cuh, rn::Checked), or the
+    division where its residual does not prove it, gives __fdiv_rn's and
+    __ddiv_rn's bit pattern: hashed pairs anywhere and inside the window,
+    divisors at every binade edge under hashed numerators and under +-1,
+    special operands, and the quotients of SpottedStar's smoothing-spline
+    system at lam = 1."""
+    from chip_smoke import penta_quotient_pairs
+
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    t, y, _ = SpottedStar()
+    (main, off1, off2), (q0, q1, q2), _ = spline._reinsch_system(torch.from_numpy(t), 1.0)
+    rhs = spline._qt_apply(q0, q1, q2, torch.from_numpy(y))
+    for dtype, fn in ((torch.float32, lib.recursions_quot_check_f32),
+                      (torch.float64, lib.recursions_quot_check_f64)):
+        a, d = (v.to(cuda) for v in penta_quotient_pairs(main, off1, off2, rhs, dtype))
+        for mode, n in ((0, 1 << 28), (1, 1 << 28), (2, 6 * 2046 * 64), (3, 6 * 2046 * 4),
+                        (4, 1 << 24), (5, a.numel())):
+            out = torch.zeros(2, dtype=torch.int64, device=cuda)
+            assert fn(n, mode, a.data_ptr(), d.data_ptr(), out.data_ptr(), stream) == 0
+            bad, fast = out.tolist()
+            assert bad == 0, (dtype, mode, bad, fast)
+            assert mode not in (1, 5) or fast > n * 0.9, (dtype, mode, bad, fast)
 
 
 def test_recursion_wrappers_check_inputs_and_never_fall_back(cuda, monkeypatch):
