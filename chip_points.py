@@ -44,6 +44,7 @@ points both sides have.
 import json
 import statistics
 import sys
+import time
 
 import numpy as np
 import torch
@@ -146,8 +147,6 @@ def kalman_points(dev, out):
 
 
 def recursion_points(dev, out):
-    import time
-
     from periodicity_tpu_torch import TSeries
     from periodicity_tpu_torch.data import SpottedStar
     from periodicity_tpu_torch.ops import filters, spline
@@ -202,8 +201,138 @@ def recursion_points(dev, out):
     out["ladder_r1_launches"] = (filters.sosfilt.launches - before) // 4
 
 
+def c9_rows(dev):
+    """Config 9's normalization rows at B = 8, 32, 64 on the card, as
+    ``hht_batch`` hands them to N1."""
+    from periodicity_tpu_torch.models.timefrequency import _normalization_rows
+    from periodicity_tpu_torch.ops import emd
+
+    t9, c9 = cs.c9_series()
+    tc = torch.from_numpy(t9).to(dev)
+    rows = {}
+    for b, ys in c9.items():
+        modes, _, n_modes = emd.emd_pool(tc, torch.from_numpy(ys).to(dev), max_modes=cs.C9_MODES)
+        rows[b] = _normalization_rows(tc, modes, n_modes)[0].contiguous()
+    return tc, c9, rows
+
+
+def amfm_points(dev, out):
+    from periodicity_tpu_torch.ops import emd, hht
+    from periodicity_tpu_torch.timefrequency import hht_batch
+
+    tc, c9, rows = c9_rows(dev)
+    shapes = [(f"n1_b{b}_f32", tc, X) for b, X in rows.items()]
+    shapes.append(("n1_b8_f64", tc.double(), rows[8].double()))
+    for key, t, X in shapes:
+        fn = lambda: hht._am_fm_cuda(t, X, 10, 2, 1e-6)  # noqa: E731
+        fn()
+        out[f"{key}_device_ms"] = cs.device_us(fn, "amfm_kernel", 5, pad=16) / 1e3
+        out[f"{key}_ms"] = cs.event_ms(fn, 10)
+    Y8 = torch.from_numpy(c9[8]).to(dev)
+    s1 = lambda: emd.sift_machine(tc, Y8, max_modes=cs.C9_MODES)  # noqa: E731
+    s1()
+    out["s1_b8_device_ms"] = cs.device_us(s1, "emd_sift_kernel", 3) / 1e3
+    grid = np.linspace(*cs.C9_GRID).astype(np.float32)
+    for b in (8, 64):
+        Y = torch.from_numpy(c9[b]).to(dev)
+        hht_batch(tc, Y, grid, max_modes=cs.C9_MODES)
+        secs = []
+        for i in range(3):
+            Yi = Y + np.float32(1e-4 * (i + 1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hht_batch(tc, Yi, grid, max_modes=cs.C9_MODES)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        out[f"hht_batch_b{b}_per_s"] = b / statistics.median(secs)
+
+
+# csrc/amfm.cu's split slots (kSplitSlots): 0 |F| (fused into the
+# division, 0), 1 extrema, 2 knots, 3 solve (Thomas), 4 Hermite and the
+# division, 5 the stop test; 6 the knot count, 7 the path, 8 the PCR levels
+# run, 9 whether the plateau pass ran, 10 the block solve's row build, 11
+# its derivatives, 12-23 its levels one by one
+SPLIT_SLOTS, SPLIT_PATHS = 24, ("flat", "thomas", "block")
+
+
+def split_stages(recs):
+    """The stages' cycles of each pass record (a row of SPLIT_SLOTS)."""
+    return {"extrema": recs[:, 1], "knots": recs[:, 2],
+            "solve": recs[:, 3] + recs[:, 10] + recs[:, 11] + recs[:, 12:].sum(1),
+            "hermite_div": recs[:, 4], "stop": recs[:, 5]}
+
+
+def amfm_split_points(dev, out):
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from periodicity_tpu_torch.ops import _kernels
+
+    src = _kernels.CSRC / "amfm.cu"
+    if "AMFM_SPLIT" not in src.read_text():
+        out["amfm_split"] = None
+        return
+    lib_dir = Path("build") / "amfm_split"
+    lib_dir.mkdir(parents=True, exist_ok=True)
+    so = lib_dir / "libamfm_split.so"
+    proc = subprocess.run([_kernels._nvcc(), *_kernels._ARCH, "-shared", "-DAMFM_SPLIT",
+                           "-Xptxas", "-v", "-o", str(so), str(src)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -DAMFM_SPLIT failed:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(so.resolve()))
+    for name in ("amfm_normalize_f32", "amfm_normalize_f64", "amfm_scratch_bytes"):
+        getattr(lib, name).argtypes = _kernels.ENTRY_POINTS[name]
+    rows_, passes_ = 512, 16
+    buf = (ctypes.c_longlong * (rows_ * passes_ * SPLIT_SLOTS))()
+    tc, _, rows = c9_rows(dev)
+    split = {"ptxas": [line.strip() for line in proc.stderr.splitlines()
+                       if "registers" in line or "spill" in line]}
+    for name, t, X in (("f32", tc, rows[8]), ("f64", tc.double(), rows[8].double())):
+        n = X.shape[1]
+        A, F = torch.empty_like(X), torch.empty_like(X)
+        passes = torch.empty(X.shape[0], dtype=torch.int32, device=dev)
+        per_row = lib.amfm_scratch_bytes(n, 2, X.element_size())
+        scratch = torch.empty(max(per_row, 0) * X.shape[0], dtype=torch.uint8, device=dev)
+        fn = lib.amfm_normalize_f64 if name == "f64" else lib.amfm_normalize_f32
+        for _ in range(2):
+            err = fn(t.data_ptr(), X.data_ptr(), n, X.shape[0], 10, 2, 1e-6, A.data_ptr(),
+                     F.data_ptr(), passes.data_ptr(), scratch.data_ptr() if per_row else None,
+                     None)
+            torch.cuda.synchronize()
+            if err != 0:
+                raise RuntimeError(f"split launch failed: cudaError {err}")
+        if lib.amfm_split_read(buf) != 0:
+            raise RuntimeError("amfm_split_read failed")
+        a = np.frombuffer(buf, dtype=np.int64).reshape(rows_, passes_, SPLIT_SLOTS)
+        p = passes.cpu().numpy()
+        recs = np.concatenate([a[r, :p[r]] for r in range(X.shape[0])]).astype(float)
+        stage = split_stages(recs)
+        cycles = sum(stage.values())
+        block = recs[:, 7] == SPLIT_PATHS.index("block")
+        split[name] = {
+            "passes": int(p.sum()), "passes_max": int(p.max()),
+            "pass_cycles_mean": float(cycles.mean()),
+            "stage_cycles_mean": {k: float(v.mean()) for k, v in stage.items()},
+            "paths": {path: int((recs[:, 7] == i).sum()) for i, path in enumerate(SPLIT_PATHS)},
+            "plateau_passes": int(recs[:, 9].sum()),
+            "block": {"knots_median": float(np.median(recs[block, 6])),
+                      "levels_run": int(recs[block, 8].sum()),
+                      "levels_full": int(sum(cs.pcr_levels(c) for c in recs[block, 6])),
+                      "build": float(recs[block, 10].mean()),
+                      "level_by_level": [float(v) for v in recs[block, 12:].mean(0)],
+                      "derivatives": float(recs[block, 11].mean()),
+                      "solve": float(stage["solve"][block].mean())} if block.any() else None,
+            "longest_row_cycles": max(float(sum(split_stages(a[r, :p[r]].astype(float)).values()).sum())
+                                      for r in range(X.shape[0])),
+        }
+    out["amfm_split"] = split
+
+
 GROUPS = {"fold": fold_points, "celerite": celerite_points, "kalman": kalman_points,
-          "recursions": recursion_points}
+          "recursions": recursion_points, "amfm": amfm_points}
+OPTIONAL = {"amfm_split": amfm_split_points}
 
 
 def main():
@@ -213,7 +342,7 @@ def main():
     out = {"label": sys.argv[1] if len(sys.argv) > 1 else "",
            "card": torch.cuda.get_device_name(0)}
     for name in sys.argv[2:] or GROUPS:
-        GROUPS[name](dev, out)
+        {**GROUPS, **OPTIONAL}[name](dev, out)
     print(json.dumps(out))
 
 

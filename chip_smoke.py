@@ -38,7 +38,10 @@ kernels, and checks every phase:
 10. phase-slice times: fold and unfactored spreading kernels vs plain; the
    fold at the shape the scan launches it (one 512-period config-11
    chunk) by CUDA events over back-to-back launches and by the profiler's
-   device time per launch, and the wrapper's host time per launch; the
+   device time per launch, and the wrapper's host time per launch, beside
+   its yardstick (a zero-fill and one ``index_add_`` of the values on flat
+   (period, row, bin) indices computed beforehand, also under
+   ``torch.use_deterministic_algorithms(True)``); the
    chained config-11 BLS rate with the device-busy share and the fold's
    device time per scan from one profiler window; the peak device memory
    of one scan;
@@ -116,7 +119,11 @@ kernels, and checks every phase:
    edge draws (the constant envelope, unit amplitude, rows finishing at
    different passes, pad widths 1 and 3, n_iter reached, the Thomas size,
    float64 at N = 4096 in global scratch) in both dtypes; events and
-   profiler times, the plain version's wall time at B = 8, the bound;
+   profiler times, the plain version's wall time at B = 8, the bound (every
+   PCR level the plain version runs, though the kernel's vote ends float32
+   solves once their couplings are all zero); both instances' local memory
+   (0 bytes) and registers, the launch at B = 64, and its float32 quotient
+   against ``__fdiv_rn``;
 25. config 9 on the card: ``hht_batch(t, Y, grid, max_modes=4)`` at B = 8,
    32, 64 (transforms/s, median of 3 perturbed inputs; S1 and N1 launches;
    busy share and the device-time shares of S1, N1 and the rest; peak
@@ -991,6 +998,44 @@ def phase_slice(dev, card, cuda):
           f"{chunk_dev_us:.2f} us of device time per launch by the profiler, plain "
           f"{chunk_times['plain']:.4f} ms; wrapper host time {statistics.mean(chunk_host):.2f} "
           f"us per launch ({card})")
+    # B2's yardstick, as B1's: a zero-fill and one index_add_ of the values
+    # on flat (period, row, bin) indices computed beforehand by the float32
+    # bin formula (fold_onehot_plain's), at the chunk; also under
+    # torch.use_deterministic_algorithms(True), as B2 is deterministic
+    from periodicity_tpu_torch.ops.fold import _f32_inputs
+
+    t32c, vals_c, freqs_c = _f32_inputs(*chunk_args[:3])
+    nphi_c = chunk_args[3]
+    phi_c = t32c[None, :] * freqs_c[:, None]
+    phi_c = phi_c - torch.floor(phi_c)
+    bins_c = (phi_c * nphi_c).to(torch.int32).clamp_(0, nphi_c - 1).to(torch.int64)
+    nv_c = vals_c.shape[0]
+    rows_c = (torch.arange(freqs_c.shape[0], device=dev)[:, None, None] * nv_c
+              + torch.arange(nv_c, device=dev)[None, :, None])
+    flat_c = (rows_c * nphi_c + bins_c[:, None, :]).reshape(-1)
+    src_c = vals_c.expand(freqs_c.shape[0], -1, -1).reshape(-1).contiguous()
+    out_c = freqs_c.shape[0] * nv_c * nphi_c
+
+    def chunk_library():
+        return torch.zeros(out_c, device=dev).index_add_(0, flat_c, src_c)
+    b2_yard = {}
+    for mode, det in (("", False), ("deterministic_", True)):
+        torch.use_deterministic_algorithms(det)
+        try:
+            chunk_library()
+            b2_yard[f"chunk_{mode}library_ms"] = event_ms(chunk_library, 200)
+            b2_yard[f"chunk_{mode}library_device_ms"] = device_us(chunk_library, "", 50) / 1e3
+            note = (f"{b2_yard[f'chunk_{mode}library_device_ms'] * 1e3:.2f} us device, "
+                    f"{b2_yard[f'chunk_{mode}library_ms'] * 1e3:.2f} us events")
+        except RuntimeError as err:  # no deterministic index_add_ in this torch
+            b2_yard[f"chunk_{mode}library_ms"] = b2_yard[f"chunk_{mode}library_device_ms"] = None
+            note = f"not run ({err})"
+        finally:
+            torch.use_deterministic_algorithms(False)
+        print(f"fold [config 11 chunk]: yardstick zero-fill + one index_add_ on flat (period, "
+              f"row, bin) indices{' (deterministic)' if det else ''}: {note}  ({card})")
+    check(float((chunk_library().reshape(-1, nv_c, nphi_c) - fold_onehot(*chunk_args)).abs().max())
+          <= 1e-6, "B2's index_add_ yardstick computes the chunk's histograms")
     grid_times = timed(extirpolate_grid, extirpolate_grid_plain, grid_args["N=1e5 2^23"], 50, 20)
     ilo3, vals3, nfft3 = grid_args["N=1e5 2^23"]
     flat3 = (ilo3.long()[:, None] + torch.arange(4, device=dev)).reshape(-1)
@@ -1112,6 +1157,7 @@ def phase_slice(dev, card, cuda):
             "chunk_bound_by": b2_chunk_bound[1],
             "chunk_host_ms": statistics.mean(chunk_host) / 1e3,
             "scan_device_ms": fold_us / 3e3,
+            **b2_yard,
         },
         {
             "name": "extirpolate_grid",
@@ -2623,6 +2669,7 @@ def timefrequency_slice(dev, card, cuda):
         "route": "cuda",
         "source": "periodicity_tpu_torch/csrc/amfm.cu",
         "replaces": "periodicity_tpu/ops/hht.py:113",
+        "redesigned": 18,
         "held": "bit-equal",
         "max_abs_err": 0.0,
         "library_ms": None,
@@ -2675,6 +2722,28 @@ def timefrequency_slice(dev, card, cuda):
             both(cuda(te).to(dtype), cuda(xe).to(dtype).contiguous(), **kw)
     print(f"phase 24 N1 edge draws ({'; '.join(e[0] for e in edges)}), float64 and float32: "
           "bit-equal to plain")
+    # its resources and launch: 0 bytes of local memory in both instances
+    # (arrays in shared memory, in global scratch) and dtypes, one block a
+    # row; its float32 quotient against __fdiv_rn
+    for dtype, key in ((torch.float32, "f32"), (torch.float64, "f64")):
+        attrs = hht.kernel_attributes(dtype)
+        for inst, a in attrs.items():
+            check(a["local_bytes"] == 0, f"N1 {key} {inst}: {a['local_bytes']} B of local memory")
+        rec[f"{key}_attributes"] = attrs
+        rec[f"{key}_geometry_b64"] = hht.kernel_geometry(C9_N, 4 * 64, dtype)
+    from periodicity_tpu_torch.ops._kernels import load
+
+    quot_bad = torch.zeros(2, dtype=torch.int64, device=dev)
+    for mode in range(4):
+        quot_bad.zero_()
+        check(load().amfm_quot_check_f32(1 << 26, mode, quot_bad.data_ptr(),
+                                          torch.cuda.current_stream(dev).cuda_stream) == 0,
+              "amfm_quot_check_f32 launch")
+        check(int(quot_bad[0]) == 0, f"N1's float32 quotient: {int(quot_bad[0])} pairs off "
+              f"__fdiv_rn (mode {mode})")
+    print(f"phase 24 N1 resources: f32 {rec['f32_attributes']}, f64 {rec['f64_attributes']}; "
+          f"config 9 B=64 launch {rec['f32_geometry_b64']}; float32 quotient = __fdiv_rn on "
+          f"4 x 2^26 pairs  ({card})")
     t24 = time.perf_counter()
 
     # the main path of this slice: phases 25-26, counted from zero

@@ -78,6 +78,14 @@ ENTRY_POINTS = {
     "amfm_normalize_f64": [_P] * 2 + [_I] * 4 + [_D] + [_P] * 5,
     # n, pad_width, element size -> global scratch bytes a row needs
     "amfm_scratch_bytes": [_I] * 3,
+    # n, pad_width, element size, rows, int[8] out: N1's launch geometry
+    "amfm_geometry": [_I] * 4 + [_P],
+    # element size, int[6] out: local memory, registers and shared memory of
+    # N1's two instances (arrays in shared memory, in global scratch)
+    "amfm_kernel_attributes": [_I, _P],
+    # pairs, mode, unsigned long long[2] out, stream: N1's float32 quotient
+    # against __fdiv_rn (a card test)
+    "amfm_quot_check_f32": [ctypes.c_ulonglong, _I, _P, _P],
     # A, U, V, P, y, b, n, r, D, W, z, s_saved, f_saved, stream (null pointers skip)
     "celerite_forward_f32": [_P] * 5 + [_I] * 3 + [_P] * 6,
     "celerite_forward_f64": [_P] * 5 + [_I] * 3 + [_P] * 6,

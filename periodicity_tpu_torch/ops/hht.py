@@ -11,7 +11,8 @@ functions over modes and members):
   runs it as a vmapped ``lax.while_loop`` (``:88-117``). With the spline
   envelope (the default), a CUDA tensor launches the hand-written kernel
   ``csrc/amfm.cu`` (N1): one launch for all rows, one thread block a row,
-  which retires when its row is done, and no host read. A CPU tensor takes
+  which retires when its row is done, and no host read (``kernel_geometry``
+  and ``kernel_attributes`` report its launch and resources). A CPU tensor takes
   :func:`am_fm_normalize_plain`, the same loop over the rows still running,
   one host read a pass. Kernel and plain version round every operation
   alike and agree bit for bit. The Hilbert envelope is plain PyTorch on
@@ -221,6 +222,40 @@ def am_fm_normalize(t, x, norm_type="spline", n_iter=10, pad_width=2, eps=1e-6, 
 
 
 am_fm_normalize.launches = 0
+
+
+def kernel_geometry(n, rows, dtype=torch.float32, pad_width=2):
+    """The launch N1 (``csrc/amfm.cu``) makes for ``rows`` rows of ``n``
+    samples on the current card, read from the built library: ``threads``
+    a block, ``rows_per_block``, ``blocks``, ``blocks_per_sm`` (the
+    occupancy calculator's at the launch's dynamic shared memory), ``sms``,
+    ``in_shared`` (the row's arrays in shared memory, else global scratch),
+    ``row_bytes`` and ``waves``."""
+    from ._kernels import load
+
+    out = (ctypes.c_int * 8)()
+    err = load().amfm_geometry(int(n), int(pad_width), torch.empty((), dtype=dtype).element_size(),
+                               int(rows), out)
+    if err != 0:
+        raise ValueError(f"no normalization launch for n={n}, rows={rows}: cudaError {err}")
+    keys = ("threads", "rows_per_block", "blocks", "blocks_per_sm", "sms", "in_shared",
+            "row_bytes", "waves")
+    return dict(zip(keys, out))
+
+
+def kernel_attributes(dtype):
+    """N1's two instances compiled in ``dtype``, the row's arrays in shared
+    memory (``shared``) or in global scratch (``global``), as the runtime
+    reports them on the current card: ``local_bytes`` of local memory a
+    thread, ``registers`` a thread and static ``shared_bytes`` a block."""
+    from ._kernels import load
+
+    out = (ctypes.c_int * 6)()
+    err = load().amfm_kernel_attributes(torch.empty((), dtype=dtype).element_size(), out)
+    if err != 0:
+        raise RuntimeError(f"amfm_kernel_attributes failed: cudaError {err}")
+    keys = ("local_bytes", "registers", "shared_bytes")
+    return {name: dict(zip(keys, out[3 * k:3 * k + 3])) for k, name in enumerate(("shared", "global"))}
 
 
 def _unwrap(p):

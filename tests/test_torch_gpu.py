@@ -950,6 +950,32 @@ def test_decompositions_on_card_match_cpu(cuda):
 
 # ---- the AM/FM normalization kernel (csrc/amfm.cu) and time-frequency -------
 
+def _peaks_rows(counts, n=2048):
+    """Positive rows of n samples (so |F| = F in the first pass) with
+    exactly counts[r] - 4 interior maxima each (samples 1, 3, ..): at pad
+    width 2, counts[r] valid knots; a falling tail after the last peak."""
+    rng = np.random.default_rng(len(counts))
+    X = np.empty((len(counts), n))
+    for r, cnt in enumerate(counts):
+        m = cnt - 4
+        X[r, :2 * m + 1:2] = rng.uniform(0.05, 0.45, m + 1)
+        X[r, 1:2 * m:2] = rng.uniform(0.55, 1.0, m)
+        X[r, 2 * m + 1:] = np.linspace(0.04, 0.001, n - 2 * m - 1)
+    return X
+
+
+def _scratch_edge(dtype):
+    """The largest N whose normalization rows fit in a block's shared
+    memory on this card (past it they run in global scratch)."""
+    lib = _kernels.load()
+    size = torch.empty((), dtype=dtype).element_size()
+    lo, hi = 2, 1 << 20
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if lib.amfm_scratch_bytes(mid, 2, size) == 0 else (lo, mid)
+    return lo
+
+
 def _amfm_case(case, dtype, device):
     """(t, X, keyword arguments) of a normalization-kernel test draw."""
     rng = np.random.default_rng(23)
@@ -962,6 +988,18 @@ def _amfm_case(case, dtype, device):
     t9 = np.linspace(0.0, 20.0, 2048)
     am9 = np.stack([(1 + 0.3 * np.sin(t9 / f)) * np.sin(2 * np.pi * f * t9)
                     for f in (2.0, 3.0, 0.4)])
+    # rows across the wave boundary of 132 SMs, one block each
+    many = {f"rows{r}": (t, np.sin(2 * np.pi * (0.05 + 0.3 * rng.random((r, 1))) * t)
+                         * (1 + 0.3 * rng.random((r, 1)) * np.cos(t / 7)), {})
+            for r in (1, 131, 132, 133, 300)}
+    if case in ("edge_shared", "edge_global"):
+        n = _scratch_edge(dtype) + (1 if case == "edge_global" else 0)
+        te = np.linspace(0.0, n / 100.0, n)
+        return (torch.from_numpy(te).to(device, dtype),
+                torch.from_numpy(np.stack([np.sin(2 * np.pi * 3.0 * te) * (1.2 + np.cos(te)),
+                                           rng.standard_normal(n)])).to(device, dtype), {})
+    zero_nan = np.stack([np.zeros(t.size), tones[0], tones[1]])
+    zero_nan[1, 77] = np.nan
     t, X, kw = {
         # float64 rows at config 9's length fit in shared memory (147 KB);
         # at N = 4096 (290 KB) they run in global scratch
@@ -975,13 +1013,22 @@ def _amfm_case(case, dtype, device):
         "pad3": (t, tones, {"pad_width": 3}),
         "pad0": (t, tones, {"pad_width": 0}),
         "n_iter": (t, tones, {"n_iter": 2}),
+        "n_iter0": (t, tones, {"n_iter": 0}),
+        "n_iter1": (t, tones, {"n_iter": 1}),
         "thomas": (np.arange(40.0), rng.standard_normal((3, 40)), {}),
         "short": (np.arange(2.0), np.ones((2, 2)), {}),
+        # a row of zeros (no maxima: the constant envelope 0) and a row
+        # holding a NaN
+        "zero_nan": (t, zero_nan, {}),
         # |F| of m / 2 periods has m maxima: m + 4 valid knots, at and
         # around the warp-resident solve's 32 and 64 rows
         **{f"tone{m}": (t500, np.stack([np.sin(np.pi * m * t500 / 500) * (1 + 0.3 * np.sin(t500 / 50)),
                                         np.sin(np.pi * m * t500 / 500) * (1.5 + np.cos(t500 / 70))]),
                         {}) for m in (28, 29, 60, 61, 62)},
+        # valid knots on each side of 32, 64 and 512 (the block solve's one
+        # row a thread up to 512, two past it)
+        "knots": (t9, _peaks_rows([31, 32, 33, 63, 64, 65, 511, 512, 513]), {}),
+        **many,
     }[case]
     return (torch.from_numpy(t).to(device, dtype),
             torch.from_numpy(np.ascontiguousarray(X)).to(device, dtype), kw)
@@ -989,12 +1036,17 @@ def _amfm_case(case, dtype, device):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", ["n2048", "n4096", "edges", "pad1", "pad3", "pad0", "n_iter",
-                                  "thomas", "short", "tone28", "tone29", "tone60", "tone61",
-                                  "tone62"])
+                                  "n_iter0", "n_iter1", "thomas", "short", "zero_nan", "tone28",
+                                  "tone29", "tone60", "tone61", "tone62", "knots", "rows1",
+                                  "rows131", "rows132", "rows133", "rows300", "edge_shared",
+                                  "edge_global"])
 def test_amfm_kernel_matches_plain_bit_for_bit(cuda, dtype, case):
     from periodicity_tpu_torch.ops import hht
 
     t, X, kw = _amfm_case(case, dtype, cuda)
+    if case in ("edge_shared", "edge_global"):
+        geometry = hht.kernel_geometry(X.shape[1], X.shape[0], dtype)
+        assert geometry["in_shared"] == (case == "edge_shared"), geometry
     before = hht.am_fm_normalize.launches
     got = hht._am_fm_cuda(t, X, kw.get("n_iter", 10), kw.get("pad_width", 2), 1e-6)
     assert hht.am_fm_normalize.launches == before + 1
@@ -1002,6 +1054,58 @@ def test_amfm_kernel_matches_plain_bit_for_bit(cuda, dtype, case):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_amfm_uses_no_local_memory(cuda, dtype):
+    """Both of N1's instances (the row's arrays in shared memory, and in
+    global scratch) keep their state in registers: 0 bytes of local memory."""
+    from periodicity_tpu_torch.ops import hht
+
+    attrs = hht.kernel_attributes(dtype)
+    assert set(attrs) == {"shared", "global"}
+    for a in attrs.values():
+        assert a["local_bytes"] == 0 and 0 < a["registers"] <= 255, attrs
+
+
+def test_amfm_launch_geometry(cuda):
+    """One row a block of 512 threads; at config 9's shape (N = 2048) the
+    rows sit in shared memory in both dtypes, one block an SM in float32
+    (one row keeps all four schedulers of the SM busy), so B = 8 and
+    32 (32 and 128 rows) take one wave and B = 64 (256 rows) two on 132
+    SMs; float64 rows of N = 4096 run in global scratch."""
+    from periodicity_tpu_torch.ops import hht
+
+    for dtype in (torch.float32, torch.float64):
+        for rows in (32, 128, 256):
+            g = hht.kernel_geometry(2048, rows, dtype)
+            assert g["threads"] == 512 and g["rows_per_block"] == 1, g
+            assert g["blocks"] == rows and g["in_shared"] == 1 and g["blocks_per_sm"] >= 1, g
+            assert g["waves"] == -(-rows // (g["blocks_per_sm"] * g["sms"])), g
+    g = hht.kernel_geometry(2048, 256, torch.float32)
+    if g["sms"] == 132:
+        assert (g["blocks_per_sm"], g["waves"]) == (1, 2), g
+        assert hht.kernel_geometry(2048, 128, torch.float32)["waves"] == 1
+    assert hht.kernel_geometry(4096, 2, torch.float64)["in_shared"] == 0
+    with pytest.raises(ValueError):
+        hht.kernel_geometry(0, 1)
+
+
+def test_amfm_quotient_is_fdiv_rn(cuda):
+    """N1's float32 quotient (csrc/amfm.cu: quot_fast's window tested on
+    magnitudes, else the float64-refined quotient for finite nonzero
+    operands, else div_rn) gives __fdiv_rn's bit pattern: hashed pairs,
+    numerators from the subnormals to 2^-61 over divisors in the window (the
+    PCR couplings), and divisors outside the window."""
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for mode in range(4):
+        n = 1 << 28
+        out = torch.zeros(2, dtype=torch.int64, device=cuda)
+        assert lib.amfm_quot_check_f32(n, mode, out.data_ptr(), stream) == 0
+        bad, wide = out.tolist()
+        assert bad == 0, (mode, bad, wide)
+        assert mode == 0 or wide > n // 2, (mode, bad, wide)
 
 
 def test_one_amfm_launch_per_call(cuda):
