@@ -33,9 +33,11 @@ With that checkout's package and ``chip_smoke.py`` helpers it times:
 
     python3 chip_points.py LABEL [GROUP ...]
 
-runs the groups named (``fold``, ``celerite``, ``kalman``, ``recursions``;
-all by default). It prints one JSON line: LABEL, the card and each point's
-times. To compare two commits on one card, unpack the other with ``git
+runs the groups named (``fold``, ``celerite``, ``kalman``, ``recursions``,
+``amfm``; all by default; ``amfm_split`` and ``amfm_sources`` only when
+named: N1's stage split from a build with ``-DAMFM_SPLIT``, and copies of
+``amfm.cu`` timed against each other, see their functions). It prints
+one JSON line: LABEL, the card and each point's times. To compare two commits on one card, unpack the other with ``git
 archive`` into a git-ignored directory and run this file from each root in
 turns (parent, change, change, parent) in one call; it uses only entry
 points both sides have.
@@ -216,8 +218,43 @@ def c9_rows(dev):
     return tc, c9, rows
 
 
+def f64_edge_rows(dev, n):
+    """Normalization rows of n samples in float64, as ``hht_batch`` hands
+    them to N1: eight of config 9's tones on its sample spacing."""
+    from periodicity_tpu_torch.models.timefrequency import _normalization_rows
+    from periodicity_tpu_torch.ops import emd
+
+    t = np.linspace(0.0, 20.0 * (n - 1) / (cs.C9_N - 1), n)
+    rng = np.random.default_rng(0)
+    Y = np.stack([np.sin(2 * np.pi * t * f) + 0.4 * np.sin(2 * np.pi * t * f / 6.0)
+                  + 0.05 * rng.standard_normal(n) for f in np.linspace(2.0, 4.0, 8)])
+    tc, Yc = torch.from_numpy(t).to(dev), torch.from_numpy(Y).to(dev)
+    modes, _, n_modes = emd.emd_pool(tc, Yc, max_modes=cs.C9_MODES)
+    return tc, _normalization_rows(tc, modes, n_modes)[0].contiguous()
+
+
+def c10_stage0(dev):
+    """Config 10's first ensemble stage as chip_smoke.py's phase 21 builds
+    it: the noise pre-decomposition's first modes, scaled, on the signal."""
+    from periodicity_tpu_torch import TSeries
+    from periodicity_tpu_torch.ops import emd
+
+    base, _ = cs.c10_signal()
+    t10 = torch.arange(float(cs.C10_N), dtype=torch.float64, device=dev)
+    noise = torch.from_numpy(
+        np.random.default_rng(cs.C10_SEED).standard_normal((cs.C10_E, cs.C10_N))).to(dev)
+    pre = emd.sift_machine(t10, noise, max_modes=int(np.log2(cs.C10_N)) + 2)
+    sig = TSeries(t10, torch.from_numpy(np.asarray(base)).to(dev))
+    rv = (sig / float(np.std(sig))).values
+    noise0 = pre[0][:, 0, :]
+    has0 = (pre[2] > 0)[:, None]
+    s0 = torch.std(noise0, dim=1, keepdim=True, correction=0)
+    beta = 0.2 * torch.std(rv, correction=0) / torch.where(s0 > 0, s0, 1.0)
+    return t10, (rv[None, :] + torch.where(has0, beta * noise0, 0.0)).contiguous()
+
+
 def amfm_points(dev, out):
-    from periodicity_tpu_torch.ops import emd, hht
+    from periodicity_tpu_torch.ops import _kernels, emd, hht
     from periodicity_tpu_torch.timefrequency import hht_batch
 
     tc, c9, rows = c9_rows(dev)
@@ -228,10 +265,23 @@ def amfm_points(dev, out):
         fn()
         out[f"{key}_device_ms"] = cs.device_us(fn, "amfm_kernel", 5, pad=16) / 1e3
         out[f"{key}_ms"] = cs.event_ms(fn, 10)
-    Y8 = torch.from_numpy(c9[8]).to(dev)
-    s1 = lambda: emd.sift_machine(tc, Y8, max_modes=cs.C9_MODES)  # noqa: E731
+    # float64 rows of N = 3400: in global scratch where a row's arrays hold t
+    # (from N ~ 3180), in shared memory where they do not (up to N ~ 3600)
+    te, Xe = f64_edge_rows(dev, 3400)
+    out["n1_f64_n3400_scratch_bytes"] = int(_kernels.load().amfm_scratch_bytes(3400, 2, 8))
+    fn = lambda: hht._am_fm_cuda(te, Xe, 10, 2, 1e-6)  # noqa: E731
+    fn()
+    out["n1_f64_n3400_device_ms"] = cs.device_us(fn, "amfm_kernel", 5, pad=16) / 1e3
+    out["n1_f64_n3400_ms"] = cs.event_ms(fn, 10)
+    for b in (8, 64):
+        Yb = torch.from_numpy(c9[b]).to(dev)
+        s1 = lambda: emd.sift_machine(tc, Yb, max_modes=cs.C9_MODES)  # noqa: E731
+        s1()
+        out[f"s1_b{b}_device_ms"] = cs.device_us(s1, "emd_sift_kernel", 3) / 1e3
+    t10, stage0 = c10_stage0(dev)
+    s1 = lambda: emd.sift_machine(t10, stage0, max_modes=1)  # noqa: E731
     s1()
-    out["s1_b8_device_ms"] = cs.device_us(s1, "emd_sift_kernel", 3) / 1e3
+    out["s1_c10_stage0_device_ms"] = cs.device_us(s1, "emd_sift_kernel", 3) / 1e3
     grid = np.linspace(*cs.C9_GRID).astype(np.float32)
     for b in (8, 64):
         Y = torch.from_numpy(c9[b]).to(dev)
@@ -262,10 +312,67 @@ def split_stages(recs):
             "hermite_div": recs[:, 4], "stop": recs[:, 5]}
 
 
-def amfm_split_points(dev, out):
+def build_amfm(src, name, *flags):
+    """amfm.cu (or a copy of it) built alone into build/amfm_split/,
+    with the package's csrc on the include path: (library, ptxas report)."""
     import ctypes
     import subprocess
     from pathlib import Path
+
+    from periodicity_tpu_torch.ops import _kernels
+
+    lib_dir = Path("build") / "amfm_split"
+    lib_dir.mkdir(parents=True, exist_ok=True)
+    so = lib_dir / f"lib{name}.so"
+    proc = subprocess.run([_kernels._nvcc(), *_kernels._ARCH, "-shared", *flags, "-I",
+                           str(_kernels.CSRC), "-Xptxas", "-v", "-o", str(so), str(src)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc {src} {flags} failed:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(so.resolve()))
+    for fn in ("amfm_normalize_f32", "amfm_normalize_f64", "amfm_scratch_bytes"):
+        getattr(lib, fn).argtypes = _kernels.ENTRY_POINTS[fn]
+    return lib, proc.stderr
+
+
+def lib_launch(lib, t, X):
+    """A launch of a library built by build_amfm on (t, X) at config 9's
+    settings (10 passes, pad width 2, eps 1e-6), and its outputs (A, F,
+    passes)."""
+    n = X.shape[1]
+    A, F = torch.empty_like(X), torch.empty_like(X)
+    passes = torch.empty(X.shape[0], dtype=torch.int32, device=X.device)
+    per_row = lib.amfm_scratch_bytes(n, 2, X.element_size())
+    scratch = torch.empty(max(per_row, 0) * X.shape[0], dtype=torch.uint8, device=X.device)
+    fn = lib.amfm_normalize_f64 if X.dtype == torch.float64 else lib.amfm_normalize_f32
+
+    def run():
+        err = fn(t.data_ptr(), X.data_ptr(), n, X.shape[0], 10, 2, 1e-6, A.data_ptr(),
+                 F.data_ptr(), passes.data_ptr(), scratch.data_ptr() if per_row else None, None)
+        if err != 0:
+            raise RuntimeError(f"amfm launch failed: cudaError {err}")
+    return run, (A, F, passes)
+
+
+def lib_attributes(lib):
+    """Local bytes and registers of each instance of a library built by
+    build_amfm (its amfm_kernel_attributes), or None where it has none."""
+    import ctypes
+
+    if not hasattr(lib, "amfm_kernel_attributes"):
+        return None
+    out = {}
+    for elem, key in ((4, "f32"), (8, "f64")):
+        buf = (ctypes.c_int * 6)()
+        if lib.amfm_kernel_attributes(elem, buf) != 0:
+            raise RuntimeError("amfm_kernel_attributes failed")
+        for i, inst in enumerate(("shared", "global")):
+            out[f"{key}_{inst}"] = {"local_bytes": buf[3 * i], "registers": buf[3 * i + 1]}
+    return out
+
+
+def amfm_split_points(dev, out):
+    import ctypes
 
     from periodicity_tpu_torch.ops import _kernels
 
@@ -273,36 +380,20 @@ def amfm_split_points(dev, out):
     if "AMFM_SPLIT" not in src.read_text():
         out["amfm_split"] = None
         return
-    lib_dir = Path("build") / "amfm_split"
-    lib_dir.mkdir(parents=True, exist_ok=True)
-    so = lib_dir / "libamfm_split.so"
-    proc = subprocess.run([_kernels._nvcc(), *_kernels._ARCH, "-shared", "-DAMFM_SPLIT",
-                           "-Xptxas", "-v", "-o", str(so), str(src)],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc -DAMFM_SPLIT failed:\n{proc.stderr}")
-    lib = ctypes.CDLL(str(so.resolve()))
-    for name in ("amfm_normalize_f32", "amfm_normalize_f64", "amfm_scratch_bytes"):
-        getattr(lib, name).argtypes = _kernels.ENTRY_POINTS[name]
+    lib, ptxas = build_amfm(src, "amfm_split", "-DAMFM_SPLIT")
     rows_, passes_ = 512, 16
     buf = (ctypes.c_longlong * (rows_ * passes_ * SPLIT_SLOTS))()
     tc, _, rows = c9_rows(dev)
-    split = {"ptxas": [line.strip() for line in proc.stderr.splitlines()
-                       if "registers" in line or "spill" in line]}
+    # the instrumented build's instances: whether a stamp costs registers
+    # or spills (the default build is held at 0 B of local memory)
+    split = {"ptxas": [line.strip() for line in ptxas.splitlines()
+                       if "registers" in line or "spill" in line],
+             "attributes": lib_attributes(lib)}
     for name, t, X in (("f32", tc, rows[8]), ("f64", tc.double(), rows[8].double())):
-        n = X.shape[1]
-        A, F = torch.empty_like(X), torch.empty_like(X)
-        passes = torch.empty(X.shape[0], dtype=torch.int32, device=dev)
-        per_row = lib.amfm_scratch_bytes(n, 2, X.element_size())
-        scratch = torch.empty(max(per_row, 0) * X.shape[0], dtype=torch.uint8, device=dev)
-        fn = lib.amfm_normalize_f64 if name == "f64" else lib.amfm_normalize_f32
+        run, (_, _, passes) = lib_launch(lib, t, X)
         for _ in range(2):
-            err = fn(t.data_ptr(), X.data_ptr(), n, X.shape[0], 10, 2, 1e-6, A.data_ptr(),
-                     F.data_ptr(), passes.data_ptr(), scratch.data_ptr() if per_row else None,
-                     None)
+            run()
             torch.cuda.synchronize()
-            if err != 0:
-                raise RuntimeError(f"split launch failed: cudaError {err}")
         if lib.amfm_split_read(buf) != 0:
             raise RuntimeError("amfm_split_read failed")
         a = np.frombuffer(buf, dtype=np.int64).reshape(rows_, passes_, SPLIT_SLOTS)
@@ -324,15 +415,48 @@ def amfm_split_points(dev, out):
                       "level_by_level": [float(v) for v in recs[block, 12:].mean(0)],
                       "derivatives": float(recs[block, 11].mean()),
                       "solve": float(stage["solve"][block].mean())} if block.any() else None,
-            "longest_row_cycles": max(float(sum(split_stages(a[r, :p[r]].astype(float)).values()).sum())
-                                      for r in range(X.shape[0])),
+            "longest_row_cycles": max(
+                float(sum(split_stages(a[r, :p[r]].astype(float)).values()).sum())
+                for r in range(X.shape[0])),
         }
     out["amfm_split"] = split
 
 
+def amfm_sources_points(dev, out):
+    """Copies of amfm.cu (the paths in AMFM_SOURCES, separated by ':'),
+    each built alone (build_amfm), held bit-equal to the plain version and
+    timed in turns (first, second, ..., then in reverse, twice) at config
+    9's rows at B = 8 and 64 in float32 and B = 8 in float64: the
+    profiler's device time a launch over 5."""
+    import os
+
+    from periodicity_tpu_torch.ops import hht
+
+    srcs = [p for p in os.environ.get("AMFM_SOURCES", "").split(":") if p]
+    libs = [build_amfm(p, f"amfm_src{i}")[0] for i, p in enumerate(srcs)]
+    tc, _, rows = c9_rows(dev)
+    res = {p: {"attributes": lib_attributes(lib)} for p, lib in zip(srcs, libs)}
+    for key, t, X in (("b8_f32", tc, rows[8]), ("b64_f32", tc, rows[64]),
+                      ("b8_f64", tc.double(), rows[8].double())):
+        want = hht.am_fm_normalize_plain(t, X, "spline", 10, 2, 1e-6)
+        runs = []
+        for p, lib in zip(srcs, libs):
+            run, got = lib_launch(lib, t, X)
+            run()
+            torch.cuda.synchronize()
+            if not all(cs.same_bits(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"{p}: not bit-equal to plain at {key}")
+            runs.append(run)
+        order = list(range(len(srcs)))
+        for i in order + order[::-1] + order + order[::-1]:
+            res[srcs[i]].setdefault(f"{key}_device_ms", []).append(
+                cs.device_us(runs[i], "amfm_kernel", 5, pad=16) / 1e3)
+    out["amfm_sources"] = res
+
+
 GROUPS = {"fold": fold_points, "celerite": celerite_points, "kalman": kalman_points,
           "recursions": recursion_points, "amfm": amfm_points}
-OPTIONAL = {"amfm_split": amfm_split_points}
+OPTIONAL = {"amfm_split": amfm_split_points, "amfm_sources": amfm_sources_points}
 
 
 def main():

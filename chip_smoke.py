@@ -2147,15 +2147,16 @@ def pcr_levels(c):
     return max(int(c) - 1, 0).bit_length()
 
 
-def solve_chain_ops(k, cnt):
+def solve_chain_ops(k, cnt, levels=None):
     """Dependent operations of one envelope solve of cnt valid knots at
-    capacity k: the boundary row (two divisions), ceil(log2 cnt) PCR levels
-    (a division and 3 operations each) and the final division, or below
-    32 the Thomas recursion over the capacity (two passes over k)."""
+    capacity k: the boundary row (two divisions), ``levels`` PCR levels
+    (ceil(log2 cnt) unless given; a division and 3 operations each) and
+    the final division, or below 32 the Thomas recursion over the capacity
+    (two passes over k)."""
     if k < 32:
         solve = k * (2 * DIV_OPS + 2) + 2 * k
     else:
-        solve = pcr_levels(cnt) * (DIV_OPS + 3) + DIV_OPS
+        solve = (pcr_levels(cnt) if levels is None else levels) * (DIV_OPS + 3) + DIV_OPS
     return (2 * DIV_OPS + 6) + solve
 
 
@@ -2175,26 +2176,95 @@ def sift_chain_ops(n, pad_width, cnt):
     return ops
 
 
+def pcr_dead(lower, diag, upper, rhs):
+    """The plain PCR solve's rows (ops/spline.py::tridiagonal_solve_pcr,
+    the same operations) after each level: [levels, ..., n] masks of the
+    rows that no later level can change but for a zero's sign (a = c = 0,
+    b finite and nonzero, d finite: amfm.cu::live's complement)."""
+    import torch
+
+    n = diag.shape[-1]
+    z = torch.zeros_like(diag[..., :1])
+    a, c = torch.cat([z, lower[..., 1:]], -1), torch.cat([upper[..., :-1], z], -1)
+    b, d = diag, rhs
+
+    def up(v, s, fill):
+        return torch.cat([torch.full_like(v[..., :s], fill), v[..., : n - s]], -1)
+
+    def dn(v, s, fill):
+        return torch.cat([v[..., s:], torch.full_like(v[..., :s], fill)], -1)
+
+    dead, s = [], 1
+    while s < n:
+        alpha, beta = -a / up(b, s, 1.0), -c / dn(b, s, 1.0)
+        a, c, b, d = (alpha * up(a, s, 0.0), beta * dn(c, s, 0.0),
+                      b + alpha * up(c, s, 0.0) + beta * dn(a, s, 0.0),
+                      d + alpha * up(d, s, 0.0) + beta * dn(d, s, 0.0))
+        dead.append((a == 0) & (c == 0) & torch.isfinite(b) & (b != 0) & torch.isfinite(d))
+        s *= 2
+    return torch.stack(dead)
+
+
+def n1_levels(cnt, dead, t, pad_width):
+    """The PCR levels N1's block solve (amfm.cu::solve_block) runs for each
+    envelope of cnt [rows] valid knots: ceil(log2 cnt); or, in float32
+    where pad_width >= 1 and t rises strictly, the first level from the
+    fifth on after which every valid row is dead (pcr_dead over the plain
+    solve's capacity, ``dead`` [levels, rows, k]; None where the plain
+    version took no PCR solve), where the kernel's vote ends them."""
+    import torch
+
+    full = [pcr_levels(c) for c in cnt.tolist()]
+    if dead is None or dead.dtype != torch.bool or pad_width < 1 \
+            or not bool((t[1:] > t[:-1]).all()):
+        return full
+    valid = torch.arange(dead.shape[-1], device=dead.device) < cnt[:, None]
+    ended = (dead | ~valid).all(-1).cpu().numpy()  # [levels, rows]
+    out = []
+    for r, lv in enumerate(full):
+        hits = [lvl for lvl in range(5, lv + 1) if ended[lvl - 1, r]]
+        out.append(hits[0] if hits else lv)
+    return out
+
+
 @contextlib.contextmanager
-def envelope_counts():
+def envelope_counts(levels=False):
     """Record the padded knot counts [rows, envelopes] of every envelope
     the plain versions build (ops/emd.py::_envelope), one array a call: a
     plain sift-machine step, or a plain normalization pass, is one call
-    over the rows still running, in order."""
-    from periodicity_tpu_torch.ops import emd
+    over the rows still running, in order. With ``levels`` (one envelope a
+    row, as N1 builds them) each array is [rows, 2]: the count and the PCR
+    levels N1 runs for it (n1_levels)."""
+    import torch
+
+    from periodicity_tpu_torch.ops import emd, spline
 
     calls = []
-    envelope = emd._envelope
+    envelope, pcr = emd._envelope, spline.tridiagonal_solve_pcr
+    dead = []
+
+    def recording_pcr(lower, diag, upper, rhs):
+        if diag.dtype == torch.float32:
+            dead.append(pcr_dead(lower, diag, upper, rhs))
+        return pcr(lower, diag, upper, rhs)
 
     def recording(t, x, mask, pad_width):
+        dead.clear()
         env, cnt = envelope(t, x, mask, pad_width)
-        calls.append(cnt.cpu().numpy().reshape(cnt.shape[0], -1))
+        rec = cnt.reshape(cnt.shape[0], -1)
+        if levels:
+            lv = n1_levels(rec[:, 0], dead[0].reshape(dead[0].shape[0], rec.shape[0], -1)
+                           if dead else None, t, pad_width)
+            rec = torch.stack([rec[:, 0], torch.as_tensor(lv, device=rec.device)], 1)
+        calls.append(rec.cpu().numpy())
         return env, cnt
     emd._envelope = recording
+    if levels:
+        spline.tridiagonal_solve_pcr = recording_pcr
     try:
         yield calls
     finally:
-        emd._envelope = envelope
+        emd._envelope, spline.tridiagonal_solve_pcr = envelope, pcr
 
 
 def member_chains(calls, steps, chain_ops):
@@ -2572,18 +2642,18 @@ C9_GRID = (0.1, 8.0, 64)
 C3_N, C3_SCALES, C3_B = 4096, (8.0, 512.0, 64), 32
 
 
-def amfm_chain_ops(n, pad_width, cnt):
+def amfm_chain_ops(n, pad_width, cnt, levels=None):
     """Dependent operations of one normalization pass on the kernel's
     critical path, cnt the envelope's valid knots (0 where the row has too
     few maxima and takes the constant max|F|): |F| (each thread's chunk),
     two block scans, the extrema flags and knots, the solve
-    (solve_chain_ops) and the Hermite evaluation (a division and 12
-    operations), or the block max, then the division F / env, the block
-    max (5 shuffles, 16 warp maxima) and the stop test."""
+    (solve_chain_ops, ``levels`` PCR levels) and the Hermite evaluation (a
+    division and 12 operations), or the block max, then the division F /
+    env, the block max (5 shuffles, 16 warp maxima) and the stop test."""
     k = n // 2 + 4 + 2 * pad_width
     per = -(-n // SIFT_THREADS)
     ops = per + 2 * (per + 12) + 5 + DIV_OPS + 21 + 2
-    return ops + (solve_chain_ops(k, cnt) + DIV_OPS + 12 if cnt else 21)
+    return ops + (solve_chain_ops(k, cnt, levels) + DIV_OPS + 12 if cnt else 21)
 
 
 def amfm_bound(n, rows, calls, passes, pad_width, dtype, clock_hz):
@@ -2591,15 +2661,26 @@ def amfm_bound(n, rows, calls, passes, pad_width, dtype, clock_hz):
     rows read once, A and F written once, against the longest row's chain of
     dependent passes, from the plain run's envelope counts (a pass solves
     where the row has at least max(pad_width, 1) interior maxima and 4
-    knots)."""
+    knots), with the PCR levels the kernel needs where they were recorded
+    (envelope_counts(levels=True): in float32 the levels after every
+    coupling is zero are not needed)."""
     elem = 8 if dtype == "float64" else 4
     bytes_moved = elem * (n + 3 * rows * n) + 4 * rows
 
     def ops(c):
         ok = c[0] - 2 * pad_width >= max(pad_width, 1) and c[0] >= 4
-        return amfm_chain_ops(n, pad_width, int(c[0]) if ok else 0)
+        return amfm_chain_ops(n, pad_width, int(c[0]) if ok else 0,
+                              int(c[1]) if len(c) > 1 else None)
     return chain_bound(bytes_moved, int(member_chains(calls, passes, ops).max()), dtype,
                        clock_hz)
+
+
+def n1_level_counts(calls, pad_width):
+    """(levels counted, ceil(log2 cnt) summed) over the passes that solve,
+    from envelope_counts(levels=True)."""
+    c = np.concatenate(calls)
+    ok = (c[:, 0] - 2 * pad_width >= max(pad_width, 1)) & (c[:, 0] >= 4)
+    return int(c[ok, 1].sum()), int(sum(pcr_levels(v) for v in c[ok, 0]))
 
 
 def amfm_edges(rng):
@@ -2654,7 +2735,7 @@ def timefrequency_slice(dev, card, cuda):
         """N1 and the plain version on the same card tensors, bit for bit,
         with N1's outputs."""
         got = hht._am_fm_cuda(t, X, n_iter, pad_width, 1e-6)
-        with envelope_counts() as calls:
+        with envelope_counts(levels=True) as calls:
             want = hht.am_fm_normalize_plain(t, X, "spline", n_iter, pad_width, 1e-6)
         torch.cuda.synchronize()
         for name, a, b in zip(("A", "F", "passes"), got, want):
@@ -2692,9 +2773,10 @@ def timefrequency_slice(dev, card, cuda):
         dev_ms = device_us(run, "amfm_kernel", 3, pad=16) / 1e3
         bnd, by = amfm_bound(C9_N, X.shape[0], calls, passes, 2, "float32", clock_hz)
         pre = "" if b == 8 else f"b{b}_"
+        lv = n1_level_counts(calls, 2)
         rec.update({f"{pre}ms": ms, f"{pre}device_ms": dev_ms, f"{pre}bound_ms": bnd,
                     f"{pre}bound_by": by, f"{pre}passes_max": int(passes.max()),
-                    f"{pre}passes_sum": int(passes.sum())})
+                    f"{pre}passes_sum": int(passes.sum()), f"{pre}pcr_levels": lv})
         if b == 8:
             rec["plain_ms"] = plain_wall_ms(
                 lambda: hht.am_fm_normalize_plain(t9c, X, "spline", 10, 2, 1e-6))
@@ -2702,7 +2784,7 @@ def timefrequency_slice(dev, card, cuda):
               f"to plain; passes max {int(passes.max())} sum {int(passes.sum())}; events "
               f"{ms:.4f} ms, device {dev_ms:.4f} ms"
               + (f", plain {rec['plain_ms']:.1f} ms" if b == 8 else "")
-              + f", bound {bnd:.4f} ms ({by})  ({card})")
+              + f", bound {bnd:.4f} ms ({by}; PCR levels {lv[0]} of {lv[1]})  ({card})")
     # float64 at N = 2048 (in shared memory: one envelope, 147 KB a row)
     X64, t64 = rows9[8].double(), t9c.double()
     got, calls = both(t64, X64)

@@ -48,18 +48,18 @@
 //     vote on the sweep's barrier confirms; else S1's plateau pass
 //     (envelope.cuh::extrema) redoes them. The knots are S1's;
 //   - a system of capacity below 32 takes S1's Thomas solve; every other
-//     one a block-wide PCR over its valid rows, a row a thread (float32
-//     two side by side past 512 rows), each row one record of four,
-//     double-buffered, one barrier a level; in float32 the level's barrier
+//     one a block-wide PCR over its valid rows, a row a thread (a second
+//     row past 512 rows), each row one record of four, double-buffered,
+//     one barrier a level; in float32 the level's barrier
 //     votes from the fifth level on, and the levels end where the rest
 //     cannot change the envelope (below);
 //   - the derivatives go out with the knots as records (time, value,
 //     derivative), which the Hermite evaluation reads, a thread's samples
 //     side by side;
-//   - float32 quotients take quot_fast's path (its window tested on
-//     magnitudes) and, for finite nonzero operands outside it (the PCR
-//     couplings shrink past 2^-60 and through the subnormals, where
-//     __fdiv_rn leaves its fast path), a float64-refined quotient;
+//   - float32 quotients take quot_fast's path and, for finite nonzero
+//     operands outside it (the PCR couplings shrink past 2^-60 and
+//     through the subnormals, where __fdiv_rn leaves its fast path),
+//     rn::Wide's float64-refined quotient;
 //     float64 quotients are rn::Checked (one reciprocal a divisor,
 //     accepted where its residual proves the correctly rounded quotient,
 //     else div_rn).
@@ -114,15 +114,16 @@ constexpr int kSplitRows = 512, kSplitPasses = 16, kSplitSlots = 24;
 enum SplitPath { kPathFlat = 0, kPathThomas = 1, kPathBlock = 2 };
 __device__ long long amfm_split_buf[kSplitRows * kSplitPasses * kSplitSlots];
 
+// thread 0's slots and its last stamp, in static shared memory (so that
+// the stamps hold no register of their own)
+__shared__ long long split_slot[kSplitSlots + 1];
+
 struct Split {
-  long long* slot;  // thread 0's, in static shared memory
   __device__ void start() {
-    __shared__ long long slots[kSplitSlots + 1];
-    slot = slots;
     __syncthreads();
     if (threadIdx.x == 0) {
-      for (int s = 0; s < kSplitSlots; ++s) slot[s] = 0;
-      slot[kSplitSlots] = clock64();
+      for (int s = 0; s < kSplitSlots; ++s) split_slot[s] = 0;
+      split_slot[kSplitSlots] = clock64();
     }
   }
   // cycles since the last stamp into slot s, after a barrier
@@ -130,18 +131,18 @@ struct Split {
     __syncthreads();
     if (threadIdx.x == 0) {
       const long long now = clock64();
-      slot[s] += now - slot[kSplitSlots];
-      slot[kSplitSlots] = now;
+      split_slot[s] += now - split_slot[kSplitSlots];
+      split_slot[kSplitSlots] = now;
     }
   }
   // a value into slot s (thread 0's)
   __device__ void note(int s, long long v) {
-    if (threadIdx.x == 0) slot[s] = v;
+    if (threadIdx.x == 0) split_slot[s] = v;
   }
   __device__ void store(int row, int pass) const {
     if (threadIdx.x == 0 && row < kSplitRows && pass < kSplitPasses)
       for (int s = 0; s < kSplitSlots; ++s)
-        amfm_split_buf[(row * kSplitPasses + pass) * kSplitSlots + s] = slot[s];
+        amfm_split_buf[(row * kSplitPasses + pass) * kSplitSlots + s] = split_slot[s];
   }
 };
 #define SPLIT(stmt) stmt
@@ -198,74 +199,32 @@ __device__ __forceinline__ T block_max(const T* sh) {
   return warp_max(sh[(threadIdx.x & 31) % kWarps]);
 }
 
-// a / d for finite nonzero float32 a and d, correctly rounded without a
-// branch: a float64 reciprocal estimate of d, one Newton step, the
-// quotient and one correction, rounded once to float32 (K1's
-// Divisor<float>, kalman.cuh). The float64 quotient is within ~2^-53 of
-// a / d, while a / d lies at least ~2^-50 (relative) from every float32
-// rounding midpoint, subnormal ones included, so the rounding is a / d's.
-__device__ __forceinline__ float quot_wide(float a, float d) {
-  const double ad = a, dd = d;
-  const double r0 = rn::rcp_approx(dd);
-  const double r = __fma_rn(r0, __fma_rn(-dd, r0, 1.0), r0);
-  const double q0 = __dmul_rn(ad, r);
-  return __double2float_rn(__fma_rn(r, __fma_rn(-dd, q0, ad), q0));
-}
-
 // N1's quotients a / d, rounded as Rn<T>::div rounds them: fast, the
 // branch-free path and whether it is that quotient; slow, the quotient
-// for any operands; one and two, the fast paths with one branch to slow.
-// float32: envelope.cuh's quot_fast, else quot_wide for finite nonzero
+// for any operands; one and two (Quot), the fast paths with one branch to
+// slow. float32: envelope.cuh's quot_fast, else rn::Wide for finite nonzero
 // operands (the PCR levels' couplings, which shrink past 2^-60 and through
 // the subnormals, where __fdiv_rn leaves its fast path), else div_rn.
 // float64: rn::Checked, a zero numerator over a finite nonzero d as a * d
 // (div_rn's zero), anything the residual does not prove by div_rn.
 template <typename T>
-struct Quot;
+struct QuotPath;
 
 template <>
-struct Quot<float> {
-  // quot_fast with its window tested on magnitudes (a normal x has an
-  // exponent in [-60, 60] exactly where 2^-60 <= |x| < 2^61; fewer
-  // instructions than the exponent field): the quotient, and whether it is
-  // the correctly rounded one
+struct QuotPath<float> {
   static __device__ __forceinline__ float fast(float a, float d, bool& ok) {
-    const float r0 = rcp_estimate(d);
-    const float e = __fmaf_rn(r0, -d, 1.0f);
-    const float r1 = __fmaf_rn(r0, e, r0);
-    const float q0 = __fmaf_rn(r1, a, 0.0f);
-    const float rem = __fmaf_rn(q0, -d, a);
-    const float q1 = __fmaf_rn(r1, rem, q0);
-    const float aa = fabsf(a), ad = fabsf(d);
-    ok = (ad >= 0x1p-60f) & (ad < 0x1p61f) & (((aa >= 0x1p-60f) & (aa < 0x1p61f)) | (a == 0.0f));
-    return a == 0.0f ? __fmul_rn(a, d) : q1;
+    return quot_fast(a, d, &ok);
   }
   static __device__ __forceinline__ bool wide(float a, float d) {
     return isfinite(a) & (a != 0.0f) & isfinite(d) & (d != 0.0f);
   }
   static __device__ __forceinline__ float slow(float a, float d) {
-    return wide(a, d) ? quot_wide(a, d) : div_rn(a, d);
-  }
-  static __device__ __forceinline__ float one(float a, float d) {
-    bool ok;
-    float q = fast(a, d, ok);
-    if (!ok) q = slow(a, d);
-    return q;
-  }
-  static __device__ __forceinline__ void two(float a1, float d1, float a2, float d2, float& q1,
-                                             float& q2) {
-    bool e1, e2;
-    q1 = fast(a1, d1, e1);
-    q2 = fast(a2, d2, e2);
-    if (!(e1 & e2)) {
-      if (!e1) q1 = slow(a1, d1);
-      if (!e2) q2 = slow(a2, d2);
-    }
+    return wide(a, d) ? rn::Wide(d).quot(a) : div_rn(a, d);
   }
 };
 
 template <>
-struct Quot<double> {
+struct QuotPath<double> {
   static __device__ __forceinline__ double fast(double a, double d, bool& ok) {
     const rn::Checked<double> c(d);
     ok = true;
@@ -275,34 +234,27 @@ struct Quot<double> {
     return zero ? __dmul_rn(a, d) : q;
   }
   static __device__ __forceinline__ double slow(double a, double d) { return div_rn(a, d); }
-  static __device__ __forceinline__ double one(double a, double d) {
+};
+
+template <typename T>
+struct Quot : QuotPath<T> {
+  using P = QuotPath<T>;
+  static __device__ __forceinline__ T one(T a, T d) {
     bool ok;
-    double q = fast(a, d, ok);
-    if (!ok) q = slow(a, d);
+    T q = P::fast(a, d, ok);
+    if (!ok) q = P::slow(a, d);
     return q;
   }
-  static __device__ __forceinline__ void two(double a1, double d1, double a2, double d2,
-                                             double& q1, double& q2) {
+  static __device__ __forceinline__ void two(T a1, T d1, T a2, T d2, T& q1, T& q2) {
     bool ok1, ok2;
-    q1 = fast(a1, d1, ok1);
-    q2 = fast(a2, d2, ok2);
+    q1 = P::fast(a1, d1, ok1);
+    q2 = P::fast(a2, d2, ok2);
     if (!(ok1 & ok2)) {
-      if (!ok1) q1 = slow(a1, d1);
-      if (!ok2) q2 = slow(a2, d2);
+      if (!ok1) q1 = P::slow(a1, d1);
+      if (!ok2) q2 = P::slow(a2, d2);
     }
   }
 };
-
-// envelope.cuh's pcr_level with N1's quotients (the same operations in the
-// same order)
-template <typename T>
-__device__ __forceinline__ Row<T> level(const Row<T>& r, const Row<T>& u, const Row<T>& n) {
-  using R = Rn<T>;
-  T alpha, beta;
-  Quot<T>::two(-r.a, u.b, -r.c, n.b, alpha, beta);
-  return {R::mul(alpha, u.a), R::add(R::add(r.b, R::mul(alpha, u.c)), R::mul(beta, n.a)),
-          R::mul(beta, n.c), R::add(R::add(r.d, R::mul(alpha, u.d)), R::mul(beta, n.d))};
-}
 
 // Records of four (a Row: a tridiagonal row a, b, c, d, or a knot: time,
 // value, derivative, unused) in one buffer of the knots' system arrays
@@ -505,7 +457,7 @@ __device__ void pack_knots(int c, const Knots<T, 1>& kn, const T* s, const Recs<
 
 // Stages 4-5 for a system of c valid rows at capacity >= 32: the knots'
 // derivatives by PCR over the valid rows, the block's threads a row each
-// (float32 two side by side past kThreads rows), the rows as records in
+// (a second past kThreads rows), the rows as records in
 // the two buffers and one barrier a level. In float32 the barrier votes
 // from the fifth level on whether any row is live; where none is and
 // may_end holds, the levels end (the header's argument). Returns the knot
@@ -526,32 +478,11 @@ __device__ Recs<T> solve_block(int c, const Knots<T, 1>& kn, bool may_end, int* 
   for (int s = 1; s < c; s *= 2) {
     const Recs<T> in = recs(kn, src), out = recs(kn, src ^ 1);
     bool any = false;
-    if (sizeof(T) == 4 && c > kThreads) {
-      // float32 past kThreads rows: two rows side by side, the loads of
-      // both before either's stores
-      for (int i = tid; i < c; i += 2 * kThreads) {
-        const int i2 = i + kThreads;
-        const bool two = i2 < c;
-        const int j2 = two ? i2 : i;
-        const Row<T> r1 = in.get(i), r2 = in.get(j2);
-        const Row<T> u1 = i >= s ? in.get(i - s) : id;
-        const Row<T> n1 = i + s < c ? in.get(i + s) : id;
-        const Row<T> u2 = j2 >= s ? in.get(j2 - s) : id;
-        const Row<T> n2 = j2 + s < c ? in.get(j2 + s) : id;
-        const Row<T> o1 = level(r1, u1, n1);
-        const Row<T> o2 = level(r2, u2, n2);
-        out.put(i, o1);
-        if (two) out.put(i2, o2);
-        any |= live(o1) | (two & live(o2));
-      }
-    } else {
-      // a row at a time (in float64 two side by side would spill registers)
-      for (int i = tid; i < c; i += kThreads) {
-        const Row<T> o = level(in.get(i), i >= s ? in.get(i - s) : id,
-                               i + s < c ? in.get(i + s) : id);
-        out.put(i, o);
-        any |= live(o);
-      }
+    for (int i = tid; i < c; i += kThreads) {
+      const Row<T> o = pcr_level<T, Quot<T>>(in.get(i), i >= s ? in.get(i - s) : id,
+                                             i + s < c ? in.get(i + s) : id);
+      out.put(i, o);
+      any |= live(o);
     }
     src ^= 1;
     ++*levels;
@@ -679,20 +610,13 @@ amfm_kernel(const T* __restrict__ t, const T* __restrict__ X, int n, int n_iter,
 // the subnormals to 2^-61 over divisors inside quot_fast's window (the PCR
 // levels' couplings); 2 numerators inside the window over divisors outside
 // it; 3 such numerators over hashed divisors. out[0] gets the pairs that
-// differ, out[1] those that took quot_wide.
-__device__ unsigned long long mix(unsigned long long z) {
-  z += 0x9e3779b97f4a7c15ull;
-  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
-  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
-  return z ^ (z >> 31);
-}
-
+// differ, out[1] those that took rn::Wide.
 __global__ void quot_check_kernel(unsigned long long n, int mode, unsigned long long* out) {
   unsigned long long bad = 0, wide = 0;
   const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * blockDim.x;
   for (unsigned long long i = blockIdx.x * static_cast<unsigned long long>(blockDim.x) + threadIdx.x;
        i < n; i += stride) {
-    const unsigned long long h = mix(i * 8 + mode);
+    const unsigned long long h = rn::mix(i * 8 + mode);
     unsigned ua = static_cast<unsigned>(h), ud = static_cast<unsigned>(h >> 32);
     const unsigned ea = (ua >> 23) & 0xffu, ed = (ud >> 23) & 0xffu;
     if (mode == 1 || mode == 3) ua = (ua & 0x807fffffu) | (ea % 67u) << 23;

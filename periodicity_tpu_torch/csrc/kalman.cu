@@ -25,20 +25,13 @@ namespace {
 // 2^+-8 (quotients on subnormal rounding midpoints); 4 both within
 // 2^+-60. out[0] gets the pairs whose bit patterns differ (NaN for NaN),
 // out[1] those with finite nonzero operands (the float64 path).
-__device__ unsigned long long mix(unsigned long long z) {
-  z += 0x9e3779b97f4a7c15ull;
-  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
-  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
-  return z ^ (z >> 31);
-}
-
 __global__ void quot_check_kernel(unsigned long long n, int mode, unsigned long long* out) {
   unsigned long long bad = 0, fast = 0;
   const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * blockDim.x;
   for (unsigned long long k = blockIdx.x * static_cast<unsigned long long>(blockDim.x) +
                               threadIdx.x;
        k < n; k += stride) {
-    const unsigned long long h = mix(k * 8 + mode);
+    const unsigned long long h = rn::mix(k * 8 + mode);
     unsigned ua = static_cast<unsigned>(h), ud = static_cast<unsigned>(h >> 32);
     if (mode == 1) {
       ua = (ua & 0x807fffffu) | (((ua >> 23) & 0xffu) % 42u) << 23;

@@ -155,19 +155,6 @@ __device__ __forceinline__ T div_rn(T a, T d) {
   return a == T(0) && isfinite(d) && d != T(0) ? Rn<T>::mul(a, d) : Rn<T>::div(a, d);
 }
 
-// The float64 reciprocal estimate div.rn.f64 starts from (MUFU.RCP64H,
-// about 23 good bits). Where no card compiles this (a CPU rehearsal), an
-// estimate of the same quality: 1 / d off by 2^-24 of itself.
-__device__ __forceinline__ double rcp_estimate(double d) {
-#ifdef __CUDA_ARCH__
-  double r;
-  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(d));
-  return r;
-#else
-  return 1.0 / d * (1.0 + 0x1p-24);
-#endif
-}
-
 // The float32 reciprocal estimate (MUFU.RCP): exact at zero, infinite and
 // NaN arguments. Where no card compiles this, the exact reciprocal.
 __device__ __forceinline__ float rcp_estimate(float d) {
@@ -183,14 +170,8 @@ __device__ __forceinline__ float rcp_estimate(float d) {
 // A divisor d and what quot needs of it, formed once for all the
 // quotients over d and off their chains.
 //
-// In float32 the quotient comes without a branch from float64: the
-// reciprocal estimate, one Newton step (error below 2^-28), the quotient and
-// one correction (error below 2^-52 + 2^-56), all fused multiply-adds, then
-// rounded to float32. That rounding gives the correctly rounded float32
-// quotient for every finite nonzero a and d: where a / d is not a float32
-// rounding boundary it lies at least 2^-50 of itself from one (subnormal
-// boundaries included), and where it is one (a subnormal midpoint, or a
-// float32) the corrected float64 quotient is a / d exactly. The other
+// In float32 the quotient comes without a branch from float64 (rn::Wide),
+// correctly rounded for every finite nonzero a and d. The other
 // operands take a product that gives the division's own result: a * d for a
 // finite nonzero d (a zero, infinite or NaN a), else a * rcp(d) (d zero,
 // infinite or NaN). __fdiv_rn instead sends zero and tiny numerators to a
@@ -203,17 +184,12 @@ struct Divisor;
 template <>
 struct Divisor<float> {
   float d, rs;
-  double dd, r;
+  rn::Wide w;
   bool ok;
-  __device__ __forceinline__ explicit Divisor(float v) : d(v), rs(rcp_estimate(v)), dd(v) {
-    const double r0 = rcp_estimate(dd);
-    r = __fma_rn(r0, __fma_rn(-dd, r0, 1.0), r0);
-    ok = isfinite(v) & (v != 0.0f);
-  }
+  __device__ __forceinline__ explicit Divisor(float v)
+      : d(v), rs(rcp_estimate(v)), w(v), ok(isfinite(v) & (v != 0.0f)) {}
   __device__ __forceinline__ float quot(float a) const {
-    const double ad = a;
-    const double q0 = __dmul_rn(ad, r);
-    const float q = __double2float_rn(__fma_rn(r, __fma_rn(-dd, q0, ad), q0));
+    const float q = w.quot(a);
     const float other = __fmul_rn(a, ok ? d : rs);
     return ok & isfinite(a) & (a != 0.0f) ? q : other;
   }

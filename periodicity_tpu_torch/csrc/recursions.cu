@@ -572,13 +572,6 @@ cudaError_t pentadiagonal_solve(const T* main_d, const T* off1, const T* off2, c
 
 // -- card checks ---------------------------------------------------------------
 
-__device__ unsigned long long mix(unsigned long long z) {
-  z += 0x9e3779b97f4a7c15ull;
-  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
-  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
-  return z ^ (z >> 31);
-}
-
 template <typename T>
 struct Bits;
 
@@ -622,7 +615,7 @@ __global__ void quot_check_kernel(unsigned long long n, int mode, const T* pa, c
   const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * blockDim.x;
   for (unsigned long long i = blockIdx.x * static_cast<unsigned long long>(blockDim.x) + threadIdx.x;
        i < n; i += stride) {
-    const unsigned long long h = mix(i * 8 + mode), h2 = mix(h);
+    const unsigned long long h = rn::mix(i * 8 + mode), h2 = rn::mix(h);
     U ua = static_cast<U>(h), ud = static_cast<U>(sizeof(U) == 8 ? h2 : h >> 32);
     // a random exponent in [-w, w] over a random sign and fraction
     auto windowed = [&](U u, unsigned long long r, unsigned w) {

@@ -247,19 +247,12 @@ cudaError_t emd_sift(const T* t, const T* Y, int n, int b, int max_modes, int ma
 // exponent window, 2 zero numerators, 3 and 4 every divisor of the window
 // (n = 121 2^23) over the numerators 1 and 1.75. out[0] gets the pairs
 // that differ, out[1] those on the fast path.
-__device__ unsigned long long mix(unsigned long long z) {
-  z += 0x9e3779b97f4a7c15ull;
-  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
-  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
-  return z ^ (z >> 31);
-}
-
 __global__ void quot_check_kernel(unsigned long long n, int mode, unsigned long long* out) {
   unsigned long long bad = 0, fast = 0;
   const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * blockDim.x;
   for (unsigned long long i = blockIdx.x * static_cast<unsigned long long>(blockDim.x) + threadIdx.x;
        i < n; i += stride) {
-    const unsigned long long h = mix(i * 8 + mode);
+    const unsigned long long h = rn::mix(i * 8 + mode);
     unsigned ua = static_cast<unsigned>(h), ud = static_cast<unsigned>(h >> 32);
     if (mode == 1) {
       ua = (ua & 0x807fffffu) | (((ua >> 23) & 0xffu) % 121u + 67u) << 23;

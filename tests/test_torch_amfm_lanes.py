@@ -25,7 +25,9 @@ count), at 33, 65, 263 and 708 valid knots in both dtypes, with half the
 maxima at exactly 1 (as after a pass: zero slopes, zero right-hand sides),
 and on |F| of config 9's rows after a plain pass. The levels that the
 early end drops leave the derivatives' bits but for the sign of a zero,
-which is checked too. No line of CUDA runs here: the kernel is held
+which is checked too. The levels that ``chip_smoke.py``'s bound counts
+for N1 (read off the plain solve's rows) are held to the replay's. No
+line of CUDA runs here: the kernel is held
 against the plain version on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py`` phase 24).
 """
@@ -34,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import c9_series, pcr_levels
+from chip_smoke import c9_series, envelope_counts, pcr_levels
 from periodicity_tpu_torch.ops import emd, peaks
 from test_torch_sift_lanes import _identity, _level, _same_bits, _spline_rows
 
@@ -202,3 +204,32 @@ def test_untied_sweep_is_the_plateau_rule(dtype):
     x = rng.standard_normal(64).astype(dtype)
     x[20] = np.nan
     assert _untied_maxima(x)[1]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("knots", [33, 65, 263, 708])
+def test_bound_counts_the_levels_the_kernel_runs(knots, dtype):
+    """chip_smoke.py's N1 bound counts the PCR levels the block solve runs
+    (envelope_counts(levels=True), from the plain solve's rows): the
+    replay's, fewer than ceil(log2 cnt) where float32 couplings underflow."""
+    t, x = _peaks_series(knots - 2 * PAD, dtype, seed=knots)
+    _, levels, cnt, _, _ = _replay(t, x)
+    with envelope_counts(levels=True) as calls:
+        emd.upper_envelope(torch.from_numpy(t), torch.from_numpy(x)[None], pad_width=PAD)
+    assert [c.tolist() for c in calls] == [[[cnt, levels]]]
+
+
+def test_bound_levels_on_real_rows():
+    """The same, row by row, for |F| of config 9's B = 8 series after one
+    plain float32 pass, recorded in one batched call."""
+    t9, c9 = c9_series()
+    t = torch.from_numpy(t9)
+    X = torch.from_numpy(c9[8][:4])
+    absF = (X / emd.upper_envelope(t, X.abs(), pad_width=PAD)).abs()
+    with envelope_counts(levels=True) as calls:
+        emd.upper_envelope(t, absF, pad_width=PAD)
+    (got,) = calls
+    for row, (cnt, levels) in zip(absF.numpy(), got.tolist()):
+        mask, tie = _untied_maxima(row)
+        assert not tie and cnt == mask.sum() + 2 * PAD
+        assert levels == _replay(t9, row)[1]
