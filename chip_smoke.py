@@ -366,14 +366,16 @@ def profiled(fn, reps=1, pad=PROFILER_PAD):
     in a ``record_function`` range, and their device work is found by the
     correlation ids of the runtime calls made in that range. Every kernel
     launched there must be in the window; a window that misses one is taken
-    again, opened with 4 and then 16 times as many untimed calls (a window
-    has dropped all of a 25-launch call after one such call), up to three
-    windows, and the run fails if the last misses any."""
+    again, opened with 4, 16 and then twice 64 times as many untimed calls
+    (a window has dropped all of a 25-launch call after one such call; in
+    phase 38 three windows in a row have each missed one of three
+    launches), up to five windows, and the run fails if the last misses
+    any."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    for opening in (pad, 4 * max(pad, 1), 16 * max(pad, 1)):
+    for opening in (pad, *(k * max(pad, 1) for k in (4, 16, 64, 64))):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(opening):
                 fn()
@@ -400,7 +402,7 @@ def profiled(fn, reps=1, pad=PROFILER_PAD):
         if not missed:
             return [(e.name(), e.duration_ns() / 1e3) for e in work], wall
         print(f"profiler window missed {missed} of {len(launched)} kernel launches; taken again")
-    check(False, "the profiler saw every kernel launch in one of three windows")
+    check(False, "the profiler saw every kernel launch in one of five windows")
 
 
 def device_us(fn, name, reps, pad=PROFILER_PAD):
@@ -793,16 +795,18 @@ def main():
     kernels += kalman_slice(dev, card, cuda)
     t8 = time.perf_counter()
     sharded = parallel_slice(dev, card, cuda)
-    for rec in kernels:
-        if rec["name"] in sharded:
-            rec["sharded_launches"] = sharded[rec["name"]]
     t9 = time.perf_counter()
     wide_slice(dev, card, cuda, kernels)
     t10 = time.perf_counter()
+    adjoint_slice(dev, card, cuda, kernels)
+    t11 = time.perf_counter()
+    for rec in kernels:
+        if rec["name"] in sharded:
+            rec["sharded_launches"] = sharded[rec["name"]]
     print(f"wall time: phases 1-6 {t0 - start:.1f} s, 7-10 {t1 - t0:.1f} s, 11-16 "
           f"{t2 - t1:.1f} s, 17-20 {t3 - t2:.1f} s, 21-22 {t4 - t3:.1f} s, 23 {t5 - t4:.1f} s, "
           f"24-26 {t6 - t5:.1f} s, 27-30 {t7 - t6:.1f} s, 31-33 {t8 - t7:.1f} s, 34-37 "
-          f"{t9 - t8:.1f} s, 38 {t10 - t9:.1f} s")
+          f"{t9 - t8:.1f} s, 38 {t10 - t9:.1f} s, 39 {t11 - t10:.1f} s")
     print(json_line({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -3811,14 +3815,15 @@ def c7_lost_carry(term, t, diag, y, bound, n_blocks):
     """The control of the float32 limits: the blocked likelihood of config
     7's series with the carry dropped at sample ``bound`` (K1 from the
     identity there, as if one chunk's carry were lost), the stretches on
-    either side over ``n_blocks`` blocks."""
+    either side over ``n_blocks`` blocks; differentiable where the term
+    needs a gradient (the control of phase 39's gradient limits)."""
     import torch
 
     from periodicity_tpu_torch.models.gp import pscan
     from periodicity_tpu_torch.utils.dtypes import full_float32
 
     coeffs, tt, dd, yy, batch = pscan._prepared(term, t, diag, y)
-    with torch.no_grad(), full_float32():
+    with full_float32():
         dt = torch.cat([tt.new_zeros(1), torch.diff(tt)])
         lo, _ = pscan._k1(coeffs, dt[:bound], dd[..., :bound], yy[..., :bound], batch, n_blocks,
                           True, None)
@@ -4019,8 +4024,8 @@ def kalman_slice(dev, card, cuda):
     # chunks of 2048 and, from its carry, 100 samples over 512 blocks)
     calls = []
 
-    def recorded(*args):
-        got = K.kalman_blocked(*args)
+    def recorded(*args, **kw):
+        got = K.kalman_blocked(*args, **kw)
         calls.append((args, got))
         return got
 
@@ -4310,14 +4315,16 @@ def kalman_slice(dev, card, cuda):
     for name in solvers:
         rel = abs(f64[name] - f64["scan"]) / abs(f64["scan"])
         check(rel <= F64_LL_REL, f"config 7 f64 N=1e4: {name} {f64[name]} vs scan {f64['scan']}")
+    g_rel = {name: float(((grads[name] - grads["scan"]).abs() / grads["scan"].abs()).max())
+             for name in ("pscan", "blocked", "chunked")}
     for name in ("blocked", "chunked"):
-        check(torch.equal(grads[name], grads["scan"]),
-              f"the gradient of {name} is the scan's: {grads[name]} vs {grads['scan']}")
-    g_rel = float(((grads["pscan"] - grads["scan"]).abs() / grads["scan"].abs()).max())
-    out["config7_f64_N10000"] = {"ll": f64, "pscan_grad_rel": g_rel}
+        check(g_rel[name] <= 1e-6, f"the gradient of {name} (K2) within JAX's 1e-6 of the "
+              f"scan's: {grads[name]} vs {grads['scan']}")
+    out["config7_f64_N10000"] = {"ll": f64, "grad_rel_vs_scan": g_rel}
     print(f"phase 32 f64 N=1e4: pscan, blocked, chunked within "
           f"{max(abs(v - f64['scan']) / abs(f64['scan']) for v in f64.values()):.1e} of the scan; "
-          f"blocked and chunked gradients equal the scan's, pscan's (autograd) within {g_rel:.1e}")
+          f"gradients of blocked {g_rel['blocked']:.1e} and chunked {g_rel['chunked']:.1e} "
+          f"(K2), pscan {g_rel['pscan']:.1e} (autograd) from the scan's")
     t32 = time.perf_counter()
 
     # phase 33: config 13, run_nuts on SpottedStar's BrownianTerm posterior
@@ -4488,14 +4495,17 @@ def in_turn_ll(term, t, diag, y, d):
     """log_likelihood_sharded's stages for ranks 0..d-1 in turn: each
     rank's first K1 pass, the all_gather of their summaries done by the
     join, each rank's exclusive carry and second pass, and the all_reduce
-    as a sum in rank order. Returns (the total, each rank's share)."""
+    as a sum in rank order. Returns (the total, each rank's share). Where
+    the term's parameters need a gradient, autograd reverses the same
+    stages: each pass through K2, the summaries' cotangents summed where
+    the join stacked them."""
     import torch
 
     from periodicity_tpu_torch.models.gp import pscan
     from periodicity_tpu_torch.utils.dtypes import full_float32
 
     coeffs, tt, dd, yy, batch = pscan._prepared(term, t, diag, y)
-    with torch.no_grad(), full_float32():
+    with full_float32():
         dt = torch.cat([tt.new_zeros(1), torch.diff(tt)])
         firsts = [pscan._shard_pass(coeffs, dt, dd, yy, batch, d, i, None) for i in range(d)]
         summaries = torch.stack([f[1] for f in firsts])
@@ -4613,7 +4623,7 @@ def sharded_modeler(smesh, cuda, tally):
     """``BrownianGP(SpottedStar, solver="sharded")`` over ``smesh`` against
     ``solver="scan"`` at 3 draws of u: nll and its gradient within
     PAR_ONE_RANK. Each sharded nll launches K1 once on rank 0 and twice
-    elsewhere (held, added to ``tally``; the gradient is the scan's).
+    elsewhere, and its gradient K2 as often (held, added to ``tally``).
     Returns (nll relative error, gradient relative error)."""
     import torch
 
@@ -4632,7 +4642,8 @@ def sharded_modeler(smesh, cuda, tally):
         uu = cuda(u).requires_grad_(True)
         f = counted(tally, K.kalman_blocked, k1, lambda: m_shard._nll_u(uu),
                     "BrownianGP(solver='sharded') nll")
-        (g,) = torch.autograd.grad(f, uu)
+        (g,) = counted(tally, K.kalman_blocked_adjoint, k1,
+                       lambda: torch.autograd.grad(f, uu), "BrownianGP(solver='sharded') gradient")
         uu = cuda(u).requires_grad_(True)
         f_scan = m_scan._nll_u(uu)
         (g_scan,) = torch.autograd.grad(f_scan, uu)
@@ -4891,13 +4902,14 @@ def parallel_slice(dev, card, cuda):
     print(f"phase 36 trace: {len(names)} event names, the spreading kernel as {spread[:1]}; "
           f"timer {tm['seconds'] * 1e3:.3f} ms a bench-shape periodogram  ({card})")
     launches = {k.__name__: tally.get(k.__name__, 0)
-                for k in (extirpolate_grid_factored, fold_onehot, K.kalman_blocked)}
+                for k in (extirpolate_grid_factored, fold_onehot, K.kalman_blocked,
+                          K.kalman_blocked_adjoint)}
     check(all(v > 0 for v in launches.values()),
-          f"B1, B2 and K1 launched by the slice's sharded calls: {launches}")
+          f"B1, B2, K1 and K2 launched by the slice's sharded calls: {launches}")
     out["main_path_launches"] = launches
     print(f"phase 36 main path (phases 34-36, the sharded calls): "
-          f"{launches['extirpolate_grid_factored']} B1, {launches['fold_onehot']} B2 and "
-          f"{launches['kalman_blocked']} K1 launches")
+          f"{launches['extirpolate_grid_factored']} B1, {launches['fold_onehot']} B2, "
+          f"{launches['kalman_blocked']} K1 and {launches['kalman_blocked_adjoint']} K2 launches")
     t36 = time.perf_counter()
 
     # phase 37: D = 4 ranks' stages in turn on the card, joined, against
@@ -4980,14 +4992,40 @@ def parallel_slice(dev, card, cuda):
     check(d_ll <= PAR_F64_CPU and d_one <= PAR_ONE_RANK,
           f"D=4 log_likelihood_sharded stages f64 N=1e5: card vs CPU {d_ll:.2e}, vs one rank "
           f"{d_one:.2e}")
+    # the stages' gradient at N = 1e4 (f64): each rank's passes reversed by
+    # K2, the summaries' cotangents summed where the join stacked them, card
+    # against CPU and against the one-rank gradient
+    gd = {}
+    part = [a[:C7_SOLVER_NS[0]] for a in args64]
+    for where, device, fn in (
+            ("cuda", dev, lambda *a: in_turn_ll(*a, PAR_D)[0]),
+            ("cpu", "cpu", lambda *a: in_turn_ll(*a, PAR_D)[0]),
+            ("one", dev, lambda *a: pscan.log_likelihood_sharded(*a, smesh))):
+        pg = torch.tensor([0.01, 20.0, 10.0, 0.3], dtype=torch.float64, device=device,
+                          requires_grad=True)
+        before = K.kalman_blocked_adjoint.launches
+        ll = fn(BrownianTerm(pg[0], pg[1], pg[2], pg[3]), *(a.to(device) for a in part))
+        (gd[where],) = torch.autograd.grad(ll, pg)
+        gd[where] = gd[where].cpu()
+        if where == "cuda":
+            check(K.kalman_blocked_adjoint.launches - before == 2 * PAR_D - 1,
+                  f"D=4 stages' gradient: {2 * PAR_D - 1} K2 launches, got "
+                  f"{K.kalman_blocked_adjoint.launches - before}")
+    d_g = float(((gd["cuda"] - gd["cpu"]) / gd["cpu"]).abs().max())
+    d_g1 = float(((gd["cuda"] - gd["one"]) / gd["one"]).abs().max())
+    check(d_g <= PAR_ONE_RANK and d_g1 <= PAR_ONE_RANK,
+          f"D=4 log_likelihood_sharded stages' gradient f64 N=1e4: card vs CPU {d_g:.2e}, vs one "
+          f"rank {d_g1:.2e}")
     out["d4"] = {"gls_f32_card_vs_cpu_band": d_band, "gls_f32_card_vs_cpu": d_all,
                  "gls_f32_vs_f64_cpu": d64, "bls_card_vs_cpu": d_bls, "dfft": fft_d,
                  "ll_f64_card_vs_cpu": d_ll, "ll_f64_vs_one_rank": d_one,
+                 "grad_f64_N10000_card_vs_cpu": d_g, "grad_f64_N10000_vs_one_rank": d_g1,
                  "rank_stage_ms": stages}
     print(f"phase 37 D={PAR_D} ranks in turn, card vs CPU: sharded_gls f32 {d_band:.2e} / "
           f"{d_all:.2e} of the peak, sharded_bls {d_bls:.2e}, dfft f32 "
           f"{fft_d['float32']['card_vs_cpu']:.2e} / f64 {fft_d['float64']['card_vs_cpu']:.2e} of "
-          f"max|X|, log_likelihood_sharded f64 {d_ll:.2e} (vs one rank {d_one:.2e})  ({card})")
+          f"max|X|, log_likelihood_sharded f64 {d_ll:.2e} (vs one rank {d_one:.2e}), its "
+          f"gradient through K2 at N=1e4 {d_g:.2e} (vs one rank {d_g1:.2e})  ({card})")
     for name, ms in stages.items():
         print(f"phase 37 rank stage times {name}: " + ", ".join(f"{x:.4f}" for x in ms)
               + f" ms  ({card})")
@@ -5069,6 +5107,358 @@ def dense_gp_yardsticks(term, tt, diag, y, Y):
 def term_width(term):
     ar, _, ac = term.coefficients()[:3]
     return ar.shape[-1] + 2 * ac.shape[-1]
+
+
+def k2_chain_ops(r):
+    """Dependent operations of one composition's adjoint on the reversed
+    chain, from the result's cotangent to the earlier operand's
+    (csrc/kalman_adjoint.cuh::compose_vjp; the factorization it reads
+    depends on the prefixes alone, off the chain): dT2 = dCn Aj and dm1t's
+    R-deep sums and its two sums (2 R + 2); U^T's forward substitution, a
+    product, a difference and a division a row (R (2 + DIV_OPS)); the
+    transposed multipliers, a product and a difference a step (2 (R - 1));
+    dM's (2 R + 1)-deep sum and its sign (2 R + 2); Jj^T dM and dCi's two
+    sums (R + 2)."""
+    return (2 * r + 2) + r * (2 + DIV_OPS) + 2 * (r - 1) + (2 * r + 2) + (r + 2)
+
+
+# Phase 39 holds config 7's f32 gradients against the f64 scan's (the
+# largest relative error over the four parameters) over C7_F32_SEEDS: at N
+# = 1e4 within twice the f32 scan gradient's own error. Beyond it the
+# blocked composition's f32 gradient is past that in both packages
+# (tests/test_torch_gp_float32.py: on a stand-in for the 1e6 series, at its
+# sampling density and float32 time resolution, jax.grad through the JAX
+# package's float32 log_likelihood_chunked reads 2.6e-2 against its scan's
+# 5.2e-4), most of it from the float32 process noise Q = Pinf - A Pinf A^T
+# that both packages form ahead of the composition (with Q formed in
+# float64 and rounded the port's reading falls more than tenfold), and one
+# lost carry's gradient error overlaps the sound readings at 1e5, so no
+# control separates a limit as for the likelihood (C5). A fixed limit,
+# above the sound readings of both packages, with every solver's f64
+# gradient within F64_LL_REL of the f64 scan's besides
+F32_GRAD_REL_LONG = {100_000: 1e-2, 1_000_000: 5e-2}
+
+
+def adjoint_slice(dev, card, cuda, kernels):
+    """Phase 39: K2, the adjoint of the blocked Kalman composition. K2
+    against its plain version bit for bit on the calls config 7's f32
+    gradients make (recorded on the way: the blocked points at N = 1e4 and
+    1e5 and a middle chunk, at the gradient's R = 6), and at R = 12 at N =
+    1e4, with its events, device time by kernel, plain time, the bound of
+    its reversed chain and, at N = 1e4, autograd's backward through the
+    dense log-likelihood; then the slice's main path, counted from zero,
+    each call's K2 launches held to its count: the gradients of config 7's
+    points (one row, live BrownianTerm, f32; blocked at 1e4 and 1e5,
+    chunked at 1e6) with their device time by kernel, launches, busy share and peak memory beside the
+    scan gradient's (G1 and G2), each in f64 within F64_LL_REL of the f64
+    scan's, and in f32 over C7_F32_SEEDS within twice the f32 scan
+    gradient's own error at 1e4 and F32_GRAD_REL_LONG beyond (one lost
+    carry's gradient printed beside them); and
+    BrownianGP(SpottedStar, solver="blocked")'s nll gradient against
+    solver="scan" at 3 draws of u (f64, 1e-10). Appends K2's record to
+    ``kernels``; prints a ``{"adjoint": ...}`` line."""
+    import torch
+
+    from periodicity_tpu_torch import TSeries
+    from periodicity_tpu_torch import data as pdata
+    from periodicity_tpu_torch.gp import (BrownianGP, log_likelihood, log_likelihood_blocked,
+                                          log_likelihood_chunked)
+    from periodicity_tpu_torch.models.gp import pscan
+    from periodicity_tpu_torch.models.gp.terms import BrownianTerm
+    from periodicity_tpu_torch.ops import celerite as C
+    from periodicity_tpu_torch.ops import kalman as K
+    from periodicity_tpu_torch.utils.dtypes import full_float32
+
+    start = time.perf_counter()
+    clock_hz = sm_clock_hz()
+    out = {"card": card}
+    rec = {"name": "kalman_blocked_adjoint", "route": "cuda",
+           "source": "periodicity_tpu_torch/csrc/kalman_adjoint.cuh",
+           "replaces": "periodicity_tpu/models/gp/pscan.py:279", "held": "bit-equal",
+           "max_abs_err": 0.0}
+    term = BrownianTerm(0.01, 20.0, 10.0, 0.3)
+    attrs = {f"{'f64' if dt == torch.float64 else 'f32'}_r{r}": K.kernel_attributes(
+        r, dt, adjoint=True) for r in range(1, K.MAX_R + 1) for dt in (torch.float32,
+                                                                        torch.float64)}
+    rec["local_bytes"] = {k: {st: a["local_bytes"] for st, a in v.items()}
+                          for k, v in attrs.items()}
+    print("phase 39 K2 local memory a thread (walk kernel): " + ", ".join(
+        f"{k} {v['walk']['local_bytes']} B" for k, v in attrs.items()))
+
+    solvers = {
+        "scan": log_likelihood,
+        "blocked": lambda term, t, d, y: log_likelihood_blocked(term, t, d, y,
+                                                                n_blocks=c7_blocks(t.shape[0])),
+        "chunked": lambda term, t, d, y: log_likelihood_chunked(term, t, d, y, chunk=C7_CHUNK,
+                                                                inner_blocks=C7_INNER),
+    }
+
+    def grad(fn, tt, yy, dtype):
+        p = torch.tensor([0.01, 20.0, 10.0, 0.3], dtype=dtype, device=dev, requires_grad=True)
+        ll = fn(BrownianTerm(p[0], p[1], p[2], p[3]), tt.to(dtype), torch.full_like(
+            tt, 0.01, dtype=dtype), yy.to(dtype))
+        return torch.autograd.grad(ll, p)[0]
+
+    def captured(n, chunked):
+        """K2's call as config 7's f32 gradient makes it (the parameters a
+        tensor that needs a gradient, the cotangents autograd hands K2),
+        recorded on the way: the blocked point of n samples, or a middle
+        chunk of the chunked shape (from the chunk before's carry, with the
+        cotangent of its own carry from the chunk after)."""
+        t7, y7 = c7_series(np.random.default_rng(0), n)
+        calls, real = [], K.kalman_blocked_adjoint
+
+        def record(*args):
+            calls.append(args)
+            return real(*args)
+
+        record.launches = 0  # what real() counts while it stands in
+        K.kalman_blocked_adjoint = record
+        try:
+            grad(solvers["chunked" if chunked else "blocked"], cuda(t7), cuda(y7), torch.float32)
+        finally:
+            K.kalman_blocked_adjoint = real
+        return next(c for c in calls if (c[6] is not None and c[10] is not None) == chunked)
+
+    def k2_timed(pre, call, label):
+        """K2 at one call's operands (A, Q, H, diag, y, n_blocks, carry,
+        the card's prefixes, bit-equal to K1's plain ones, and the
+        cotangents): bit-equal to its plain version, its events, device
+        time by kernel, the plain version's wall time and the bound of its
+        reversed chain, or the bytes."""
+        A, nb, carry = call[0], call[5], call[6]
+        n, r = A.shape[1], A.shape[-1]
+        fn = lambda: K.kalman_blocked_adjoint(*call)  # noqa: E731
+        got = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = K.kalman_blocked_adjoint_plain(*call)
+        rec[f"{pre}plain_ms"] = (time.perf_counter() - t0) * 1e3
+        flat = lambda v: list(v[:4]) + list(v[4] or ())  # noqa: E731
+        for name, a, w in zip(("dA", "dQ", "ddiag", "dy", "cA", "cb", "cC", "ceta", "cJ"),
+                              flat(got), flat(want)):
+            check(bit_equal(a, w), f"K2 vs plain at {label}: {name} not bit-equal")
+        rec[f"{pre}ms"] = event_ms(fn, 5)
+        work, _ = profiled(fn, reps=2)
+        geo = K.kernel_geometry(A.shape[0], n, r, nb, carry is not None, A.dtype, adjoint=True)
+        kern = {}
+        for name, us in work:
+            if "k2_" in name:
+                k = name.split("k2_")[1].split("_kernel")[0]
+                kern[k] = kern.get(k, 0.0) + us / 2 / 1e3
+        check(sum(1 for w_ in work if "k2_" in w_[0]) == 2 * geo["launches"],
+              f"K2's {geo['launches']} launches a call: {work}")
+        rec[f"{pre}device_ms"] = sum(kern.values())
+        rec[f"{pre}kernel_device_ms"] = kern
+        esz = A.element_size()
+        rec[f"{pre}bound_ms"], rec[f"{pre}bound_by"] = chain_bound(
+            esz * n * (7 * r * r + 2 * r + 4),
+            (geo["length"] + 2 * geo["levels"] + 1) * k2_chain_ops(r), str(A.dtype)[6:],
+            clock_hz)
+        rec[f"{pre}launches_a_call"] = geo["launches"]
+        rec[f"{pre}n_blocks"] = nb
+        print(f"phase 39 K2 at {label}: bit-equal to plain; events {rec[pre + 'ms']:.4f} ms, "
+              f"device {rec[pre + 'device_ms']:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in kern.items())
+              + f"), plain {rec[pre + 'plain_ms']:.1f} ms, bound {rec[pre + 'bound_ms']:.4f} ms "
+              f"{rec[pre + 'bound_by']}  ({card})")
+
+    # with parameters that need a gradient the term emits its SHO's masked
+    # form (two real slots and a complex pair), R = 6 where the term of
+    # Python floats has R = 4
+    shapes = []
+    for n in C7_SOLVER_NS:
+        call = captured(n, False)
+        r = call[0].shape[-1]
+        k2_timed(f"N{n}_", call, f"config 7's gradient at N={n} (1 row, R={r}, {c7_blocks(n)} "
+                 "blocks, f32)")
+        shapes.append(f"R={r} N={n}")
+    call = captured(3 * C7_CHUNK, True)
+    r = call[0].shape[-1]
+    k2_timed("chunk_", call, f"config 7's chunked gradient, a middle chunk (1 row, R={r}, "
+             f"N={C7_CHUNK}, {C7_INNER} blocks, from a carry, f32)")
+    shapes.append(f"R={r} chunk of {C7_CHUNK} from a carry")
+    del call
+    # R = 12 at N = 1e4 (the plain version takes ~40 s on the host at 1e5),
+    # random cotangents
+    _, _, A, Q, H, diag, y = k1_draw(np.random.default_rng(39), 12, 1, C7_SOLVER_NS[0],
+                                     torch.float32)
+    args, nb, g = [x.to(dev) for x in (A, Q, H, diag, y)], c7_blocks(C7_SOLVER_NS[0]), \
+        torch.Generator().manual_seed(39)
+    pref = K.kalman_blocked(*args, nb, None, prefixes=True)[3]
+    dmu, ds = (torch.randn(y.shape, generator=g, dtype=y.dtype).to(dev) for _ in "ab")
+    k2_timed(f"r12_N{C7_SOLVER_NS[0]}_", (*args, nb, None, pref, dmu, ds, None),
+             f"R=12 N={C7_SOLVER_NS[0]} (1 row, f32, random cotangents)")
+    shapes.append(f"R=12 N={C7_SOLVER_NS[0]}")
+    del args, A, Q, H, diag, y, pref
+    # the library yardstick at N = 1e4: autograd's backward through the
+    # dense cholesky_ex + solve_triangular log-likelihood of the same K
+    n = C7_SOLVER_NS[0]
+    t7, y7 = c7_series(np.random.default_rng(0), n)
+    tt, yy = cuda(t7), cuda(y7)
+    with full_float32():
+        Kd = (term.get_value(tt[:, None] - tt[None, :]) + torch.diag(torch.full_like(tt, 0.01))
+              ).requires_grad_(True)
+        yg = yy.clone().requires_grad_(True)
+        L, info = torch.linalg.cholesky_ex(Kd)
+        z = torch.linalg.solve_triangular(L, yg[:, None], upper=False)
+        ll = -0.5 * (z.square().sum() + 2 * torch.log(torch.diagonal(L)).sum())
+        rec[f"N{n}_library_ms"] = event_ms(
+            lambda: torch.autograd.grad(ll, (Kd, yg), retain_graph=True), 3)
+        rec[f"N{n}_library_info"] = int(info)
+    del Kd, L, z, ll
+    torch.cuda.empty_cache()
+    rec[f"N{C7_SOLVER_NS[1]}_library_ms"] = None
+    rec[f"N{C7_SOLVER_NS[1]}_library_note"] = "none (dense K does not fit: 40 GB in f32)"
+    for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        rec[key] = rec[f"N{C7_SOLVER_NS[0]}_{key}"]
+    rec["shape"] = ("K2's calls in config 7's f32 gradients, one row, live BrownianTerm "
+                    "with parameters that need a gradient (its masked form, R = 6), "
+                    "autograd's cotangents: "
+                    "unprefixed N = 1e4 (39 blocks), also under N10000_; N100000_ N = 1e5 "
+                    "(390 blocks); chunk_ a middle chunk of the chunked gradient (65536 samples "
+                    "over 512 blocks, from a carry, with its own carry's cotangent); r12_N10000_ "
+                    "R = 12 at 1e4, random operands and cotangents")
+    print(f"phase 39 K2 at config 7 N={n}: autograd's backward through the dense "
+          f"cholesky_ex + solve_triangular {rec['library_ms']:.3f} ms  ({card})")
+    t_k2 = time.perf_counter()
+
+    # the main path, counted from zero: config 7's gradients in f32, each
+    # call's K2 launches held to its count (one a blocked gradient, one a
+    # chunk a chunked one, none a scan's); the lost-carry control runs
+    # outside the count
+    def rel(g, ref):
+        return float(((g.double() - ref) / ref).abs().max())
+
+    def main_grad(which, tt, yy, dtype):
+        n = tt.shape[0]
+        want = {"scan": 0, "blocked": 1, "chunked": -(-n // C7_CHUNK)}[which]
+        return counted(tally, K.kalman_blocked_adjoint, want,
+                       lambda: grad(solvers[which], tt, yy, dtype),
+                       f"config 7's {which} gradient at N={n} ({dtype})")
+
+    def uncounted(fn):
+        """fn() with every count of the main path put back after it."""
+        kept = [(w, w.launches) for w in (K.kalman_blocked, K.kalman_blocked_adjoint,
+                                          C.celerite_forward, C.celerite_adjoint)]
+        try:
+            return fn()
+        finally:
+            for w, launched in kept:
+                w.launches = launched
+
+    tally = {}
+    K.kalman_blocked.launches = 0
+    K.kalman_blocked_adjoint.launches = 0
+    C.celerite_forward.launches = 0
+    C.celerite_adjoint.launches = 0
+    points = [(C7_SOLVER_NS[0], "blocked"), (C7_SOLVER_NS[1], "blocked"),
+              (C7_CHUNKED_N, "chunked")]
+    grads = {}
+    for n, name in points:
+        t7, y7 = c7_series(np.random.default_rng(0), n)
+        tt, yy = cuda(t7), cuda(y7)
+        cell = {}
+        for which in (name, "scan"):
+            fn = lambda which=which: main_grad(which, tt, yy, torch.float32)  # noqa: E731
+            fn()
+            ms = event_ms(fn, 2)
+            work, wall = profiled(fn, pad=1)
+            by, k2 = {}, {}
+            for kname, us in work:
+                key = ("K2" if "k2_" in kname else "K1" if "kalman_" in kname
+                       else "G1" if "celerite_forward" in kname
+                       else "G2" if "celerite_adjoint" in kname else "other")
+                by[key] = by.get(key, 0.0) + us / 1e3
+                if key == "K2":
+                    k = kname.split("k2_")[1].split("_kernel")[0]
+                    k2[k] = k2.get(k, 0.0) + us / 1e3
+            mem = peak_bytes(fn)
+            cell[which] = {"ms": ms, "device_ms": sum(by.values()), "device_ms_by": by,
+                           "k2_device_ms_by_kernel": k2, "launches": len(work),
+                           "busy_share": sum(by.values()) / 1e3 / wall, "peak_mib": mem / 2**20}
+        g64 = rel(main_grad(name, tt, yy, torch.float64),
+                  main_grad("scan", tt, yy, torch.float64))
+        check(g64 <= F64_LL_REL, f"config 7 {name} N={n}: the f64 gradient {g64:.2e} from the f64 "
+              f"scan's")
+        cell["f64_grad_rel_vs_f64_scan"] = g64
+        bound, nb = (n // 2, c7_blocks(n)) if name == "blocked" else (C7_CHUNK, C7_INNER)
+        lost = lambda term, t, d, y: c7_lost_carry(term, t, d, y, bound, nb)  # noqa: E731
+        errs = {name: [], "scan": [], "lost": []}
+        for seed in C7_F32_SEEDS:
+            t7, y7 = c7_series(np.random.default_rng(seed), n)
+            ts_, ys_ = cuda(t7), cuda(y7)
+            ref = main_grad("scan", ts_, ys_, torch.float64)
+            for which in (name, "scan"):
+                errs[which].append(rel(main_grad(which, ts_, ys_, torch.float32), ref))
+            errs["lost"].append(rel(uncounted(lambda: grad(lost, ts_, ys_, torch.float32)), ref))
+        worst, scan_worst = max(errs[name]), max(errs["scan"])
+        if n == C7_SOLVER_NS[0]:
+            check(worst <= 2 * scan_worst,
+                  f"config 7 {name} N={n} f32 gradient over seeds {C7_F32_SEEDS}: {worst:.3e} "
+                  f"from the f64 scan's, more than twice the f32 scan's {scan_worst:.3e}")
+        else:
+            check(worst <= F32_GRAD_REL_LONG[n],
+                  f"config 7 {name} N={n} f32 gradient over seeds {C7_F32_SEEDS}: {worst:.3e} "
+                  f"from the f64 scan's, past the limit {F32_GRAD_REL_LONG[n]}")
+        cell["f32_grad_rel_vs_f64_scan"] = errs
+        grads[f"{name}_N{n}"] = cell
+        a, b = cell[name], cell["scan"]
+        print(f"phase 39 config 7 {name} N={n} gradient (f32): {a['ms']:.3f} ms (K1 "
+              f"{a['device_ms_by'].get('K1', 0):.3f} + K2 {a['device_ms_by'].get('K2', 0):.3f} "
+              f"ms device, {a['launches']} launches, busy {a['busy_share']:.1%}, peak "
+              f"{a['peak_mib']:.1f} MiB) vs the scan's {b['ms']:.3f} ms (G1 "
+              f"{b['device_ms_by'].get('G1', 0):.3f} + G2 {b['device_ms_by'].get('G2', 0):.3f} "
+              f"ms device, {b['launches']} launches, busy {b['busy_share']:.1%}, peak "
+              f"{b['peak_mib']:.1f} MiB); rel to the f64 scan's over seeds {list(C7_F32_SEEDS)}: "
+              + ", ".join(f"{x:.2e}" for x in errs[name]) + " (the f32 scan's "
+              + ", ".join(f"{x:.2e}" for x in errs["scan"]) + "; one lost carry's "
+              + ", ".join(f"{x:.2e}" for x in errs["lost"]) + "); K2 by kernel "
+              + ", ".join(f"{k} {v:.3f}" for k, v in a["k2_device_ms_by_kernel"].items())
+              + f" ms  ({card})")
+    out["config7_gradients"] = grads
+
+    ts, ys, dys = pdata.SpottedStar()
+    sig = TSeries(cuda(ts), cuda(ys))
+    models = {s_: BrownianGP(sig, err=cuda(dys), solver=s_) for s_ in ("scan", "blocked")}
+    d_nll = d_grad = 0.0
+    for u in np.random.default_rng(39).uniform(5, 95, (3, models["scan"].ndim)):
+        vals = {}
+        for s_, m in models.items():
+            uu = cuda(u).requires_grad_(True)
+
+            def nll_grad(m=m, uu=uu):
+                f = m._nll_u(uu)
+                return float(f.detach()), torch.autograd.grad(f, uu)[0]
+
+            vals[s_] = counted(tally, K.kalman_blocked_adjoint, int(s_ == "blocked"), nll_grad,
+                               f"BrownianGP(SpottedStar, solver={s_!r})'s nll gradient")
+        d_nll = max(d_nll, abs(vals["blocked"][0] - vals["scan"][0]) / abs(vals["scan"][0]))
+        d_grad = max(d_grad, float((vals["blocked"][1] - vals["scan"][1]).abs().max()
+                                   / vals["scan"][1].abs().max()))
+    check(d_nll <= F64_LL_REL and d_grad <= F64_LL_REL,
+          f"BrownianGP(SpottedStar, solver='blocked') vs scan: nll {d_nll:.2e}, gradient "
+          f"{d_grad:.2e}")
+    out["modeler_blocked_vs_scan"] = {"nll_rel": d_nll, "grad_rel": d_grad}
+    print(f"phase 39 BrownianGP(SpottedStar, solver='blocked'): nll within {d_nll:.1e} and its "
+          f"gradient (K2) within {d_grad:.1e} of solver='scan' (f64, 3 draws of u)")
+    launches = {"kalman_blocked": K.kalman_blocked.launches,
+                "kalman_blocked_adjoint": K.kalman_blocked_adjoint.launches,
+                "celerite_forward": C.celerite_forward.launches,
+                "celerite_adjoint": C.celerite_adjoint.launches}
+    check(launches["kalman_blocked_adjoint"] == tally["kalman_blocked_adjoint"] > 0
+          and launches["kalman_blocked"] > 0,
+          f"K1 and K2 launched on phase 39's main path, K2 as each call's count: {launches}, "
+          f"{tally}")
+    rec["launches"] = launches["kalman_blocked_adjoint"]
+    out["main_path_launches"] = launches
+    out["shapes_bit_equal"] = shapes
+    out["wall_s"] = {"k2_vs_plain": t_k2 - start, "gradients": time.perf_counter() - t_k2}
+    print(f"phase 39 main path: {launches['kalman_blocked']} K1, "
+          f"{launches['kalman_blocked_adjoint']} K2, {launches['celerite_forward']} G1 and "
+          f"{launches['celerite_adjoint']} G2 launches")
+    print(json_line({"adjoint": out}))
+    kernels.append(rec)
 
 
 def wide_slice(dev, card, cuda, kernels):

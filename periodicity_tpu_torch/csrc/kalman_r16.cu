@@ -1,6 +1,7 @@
-// K1 at R = 16 states (kalman.cuh), a translation unit of its own so that
-// nvcc builds the widths in parallel.
+// K1 and its adjoint K2 at R = 16 states (kalman.cuh, kalman_adjoint.cuh), a
+// translation unit of their own so that nvcc builds the widths in parallel.
 
-#include "kalman.cuh"
+#include "kalman_adjoint.cuh"
 
 PERIODICITY_KALMAN_WIDTH(16)
+PERIODICITY_KALMAN_ADJOINT_WIDTH(16)

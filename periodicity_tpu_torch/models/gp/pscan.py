@@ -18,12 +18,12 @@ C, eta, J)`` composed by :func:`_combine`.
   :func:`log_likelihood_sharded`: the blocked composition K1 (``ops/kalman.py``; a hand kernel on the card, its
   plain version on the CPU), once for the series or once a chunk with the
   composed element carried between chunks, or once a rank's stretch and
-  again from the carry the earlier ranks' summaries compose. K1 has no
-  adjoint: when an input
-  needs a gradient they return K1's value with the gradient of the
-  sequential solver (``solver.log_likelihood``, G1 and G2 on the card),
-  ``ll_k1.detach() + (ll_scan - ll_scan.detach())``, the exact gradient of
-  the same function.
+  again from the carry the earlier ranks' summaries compose. Their
+  gradient is K1's own: autograd runs K1's adjoint K2 (``ops.kalman.
+  KalmanBlocked``) on each call, the chunks in reverse with the carry's
+  cotangent handed back from the chunk after, and the sharded form
+  reverses its rank's passes and sums what the ranks share
+  (:class:`_ShardedK1`); the sequential solver is not run.
 
 Every function takes the term's leading batch axes (walkers): elements are
 ``[..., N, R, R]``. Times are placed by ``core.as_tensor`` (arrays to the
@@ -37,10 +37,9 @@ import torch
 import torch.distributed as dist
 
 from ...core import as_tensor
-from ...ops.kalman import kalman_blocked, pack_carry, unpack_carry
+from ...ops.kalman import kalman_blocked, kalman_blocked_adjoint, pack_carry, unpack_carry
 from ...parallel.mesh import axis_info
 from ...utils.dtypes import full_float32
-from . import solver as _solver
 from .solver import _at
 
 __all__ = [
@@ -314,17 +313,6 @@ def _k1(coeffs, dt, diag, y, batch, n_blocks, first, carry):
     return _innovation_sum(yb, mu, s).reshape(batch), carry
 
 
-def _with_scan_gradient(ll, term, t, diag, resid, coeffs, placed):
-    """K1's value; when an input needs a gradient, plus the sequential
-    solver's likelihood minus its detached self, so the gradient is the
-    scan's (G1 forward, G2 backward on the card)."""
-    if not torch.is_grad_enabled() or not any(
-            x.requires_grad for x in (*coeffs, *placed)):
-        return ll
-    ll_scan = _solver.log_likelihood(term, t, diag, resid)
-    return ll.detach() + (ll_scan - ll_scan.detach())
-
-
 def _positive(name, value):
     value = int(value)
     if value < 1:
@@ -336,13 +324,13 @@ def log_likelihood_blocked(term, t, diag, resid, n_blocks=64):
     """GP log-likelihood [...] via the blocked two-level Kalman composition
     (K1: depth N/n_blocks within blocks, log2(n_blocks) across them). Matches
     ``solver.log_likelihood`` for SHO-family terms; its gradient is the
-    sequential solver's (see the module)."""
+    composition's own, through K2 (see the module)."""
     n_blocks = _positive("n_blocks", n_blocks)
     coeffs, tt, dd, y, batch = _prepared(term, t, diag, resid)
-    with torch.no_grad(), full_float32():
+    with full_float32():
         dt = torch.cat([tt.new_zeros(1), torch.diff(tt)])
         ll, _ = _k1(coeffs, dt, dd, y, batch, n_blocks, True, None)
-    return _with_scan_gradient(ll, term, t, diag, resid, coeffs, (tt, dd, y))
+    return ll
 
 
 def log_likelihood_chunked(term, t, diag, resid, chunk=65536, inner_blocks=512):
@@ -352,14 +340,14 @@ def log_likelihood_chunked(term, t, diag, resid, chunk=65536, inner_blocks=512):
     chunk geometry is JAX's: ``inner = min(inner_blocks, chunk, N)``, then
     ``chunk = max((min(chunk, N) // inner) * inner, inner)``. Matches
     ``solver.log_likelihood`` for SHO-family terms; its gradient is the
-    sequential solver's (see the module)."""
+    composition's own, through K2 a chunk (see the module)."""
     chunk = _positive("chunk", chunk)
     inner_blocks = _positive("inner_blocks", inner_blocks)
     coeffs, tt, dd, y, batch = _prepared(term, t, diag, resid)
     n = tt.shape[0]
     inner = min(inner_blocks, chunk, n)
     chunk = max((min(chunk, n) // inner) * inner, inner)
-    with torch.no_grad(), full_float32():
+    with full_float32():
         dt = torch.cat([tt.new_zeros(1), torch.diff(tt)])
         ll = None
         carry = None
@@ -368,7 +356,7 @@ def log_likelihood_chunked(term, t, diag, resid, chunk=65536, inner_blocks=512):
             part, carry = _k1(coeffs, dt[lo:hi], dd[..., lo:hi], y[..., lo:hi], batch, inner,
                               lo == 0, carry)
             ll = part if ll is None else ll + part
-    return _with_scan_gradient(ll, term, t, diag, resid, coeffs, (tt, dd, y))
+    return ll
 
 
 def _shard_blocks(nl):
@@ -411,36 +399,129 @@ def _shard_carry(summaries, idx, r):
     return run
 
 
+class _RankSum(torch.autograd.Function):
+    """The sum over the group's ranks of each rank's share; the gradient,
+    the same on every rank, passes to each share unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Shared(torch.autograd.Function):
+    """The inputs every rank holds whole, unchanged; the backward sums
+    their gradients over the group's ranks (each rank's is what its own
+    stretch gives) in one all_reduce."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        ctx.like = [torch.empty((), dtype=x.dtype, device=x.device).expand(x.shape) for x in xs]
+        return tuple(x.clone() for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = [i for i, w in enumerate(ctx.needs_input_grad[1:]) if w]
+        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, ctx.like)]
+        flat = torch.cat([grads[i].reshape(-1) for i in need])
+        dist.all_reduce(flat, group=ctx.group)
+        out = [None] * len(grads)
+        for i, part in zip(need, torch.split(flat, [grads[i].numel() for i in need])):
+            out[i] = part.reshape(grads[i].shape)
+        return (None, *out)
+
+
+class _ShardedK1(torch.autograd.Function):
+    """Rank ``idx``'s K1 passes over its stretch's (A, Q, diag, y) (see
+    :func:`log_likelihood_sharded`): the first from the identity (rank 0
+    from the stationary prior), the ``all_gather`` of the summaries, and
+    past rank 0 the second from the composed carry. Returns the stretch's
+    (mu, s). The backward reverses them: past rank 0 K2 of the second pass,
+    its carry's cotangent back through :func:`_shard_carry` to the D
+    summaries; those summed over ranks (the ``all_gather``'s transpose);
+    K2 of the first pass from this rank's own summary's cotangent (and, on
+    rank 0, the innovations'). Every rank runs one collective each way."""
+
+    @staticmethod
+    def forward(ctx, H, nb, d, idx, group, A, Q, diag, y):
+        r = H.shape[0]
+        mu, s, out, pre1 = kalman_blocked(A, Q, H, diag, y, nb, None, prefixes=True)
+        summary = pack_carry(out).contiguous()
+        parts = [torch.empty_like(summary) for _ in range(d)]
+        dist.all_gather(parts, summary, group=group)
+        parts = torch.stack(parts)
+        saved = [A, Q, H, diag, y, pre1, parts]
+        if idx:
+            mu, s, _, pre2 = kalman_blocked(A, Q, H, diag, y, nb, _shard_carry(parts, idx, r),
+                                            prefixes=True)
+            saved.append(pre2)
+        ctx.save_for_backward(*saved)
+        ctx.nb, ctx.idx, ctx.group = nb, idx, group
+        return mu, s
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dmu, ds):
+        A, Q, H, diag, y, pre1, parts, *pre2 = ctx.saved_tensors
+        nb, idx, r = ctx.nb, ctx.idx, H.shape[0]
+        zero = torch.zeros_like(diag)
+        dmu = zero if dmu is None else dmu
+        ds = zero if ds is None else ds
+        dparts = torch.zeros_like(parts)
+        if idx:
+            carry = _shard_carry(parts, idx, r)
+            second = kalman_blocked_adjoint(A, Q, H, diag, y, nb, carry, pre2[0], dmu, ds)
+            with torch.enable_grad():
+                pp = parts.detach().requires_grad_(True)
+                (dparts,) = torch.autograd.grad(_shard_carry(pp, idx, r), pp, second[4])
+        dist.all_reduce(dparts, group=ctx.group)
+        first = kalman_blocked_adjoint(A, Q, H, diag, y, nb, None, pre1,
+                                       zero if idx else dmu, zero if idx else ds,
+                                       unpack_carry(dparts[idx], r))
+        grads = first[:4] if not idx else tuple(a + b for a, b in zip(first[:4], second[:4]))
+        return (None, None, None, None, None, *grads)
+
+
 def log_likelihood_sharded(term, t, diag, resid, mesh, axis="seq"):
     """GP log-likelihood [...] with the TIME axis sharded over a mesh axis.
 
     The multi-rank extension of :func:`log_likelihood_blocked`: each of the
-    D ranks composes its contiguous N/D stretch with K1
-    (:func:`_shard_pass`), one ``all_gather`` shares the D block summaries
-    (O(D R^2) values a row, independent of N), each rank composes those of
-    the ranks before it into its exclusive carry (:func:`_shard_carry`) and
-    runs K1 again from it (:func:`_shard_pass` with that carry; rank 0
-    needs no second call), and one ``all_reduce`` adds the innovation
-    sums. Every rank holds the whole series and returns the same value. N
-    must divide by D.
+    D ranks composes its contiguous N/D stretch with K1, one ``all_gather``
+    shares the D block summaries (O(D R^2) values a row, independent of
+    N), each rank composes those of the ranks before it into its exclusive
+    carry (:func:`_shard_carry`) and runs K1 again from it (rank 0 needs no
+    second call; :class:`_ShardedK1`; :func:`_shard_pass` is one such pass
+    on its own), and one ``all_reduce`` adds the innovation sums. Every
+    rank holds the whole series and returns the same value. N must divide
+    by D.
 
     Matches ``solver.log_likelihood`` for SHO-family terms. Its gradient is
-    the sequential solver's (see the module): every rank holds the whole
-    series, so each differentiates the scan on its own.
+    that of the two-level composition: each rank reverses only its own
+    stretch's passes with K2 (:class:`_ShardedK1`), the summaries'
+    cotangents are summed over ranks, and so are the gradients of what
+    every rank holds whole (the term's coefficients, the times, diag and
+    resid, each rank's share its own stretch's), so that every rank returns
+    the gradient of the total. No rank runs the sequential solver.
     """
     d, idx, group = axis_info(mesh, axis)
     coeffs, tt, dd, y, batch = _prepared(term, t, diag, resid)
     n = tt.shape[0]
     if n % d:
         raise ValueError(f"n={n} must be divisible by mesh axis size {d}")
-    with torch.no_grad(), full_float32():
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (*coeffs, tt, dd, y)):
+        *coeffs, tt, dd, y = _Shared.apply(group, *coeffs, tt, dd, y)
+    with full_float32():
         dt = torch.cat([tt.new_zeros(1), torch.diff(tt)])
-        ll, summary = _shard_pass(coeffs, dt, dd, y, batch, d, idx, None)
-        parts = [torch.empty_like(summary) for _ in range(d)]
-        dist.all_gather(parts, summary.contiguous(), group=group)
-        if idx:
-            ll, _ = _shard_pass(coeffs, dt, dd, y, batch, d, idx,
-                                _shard_carry(torch.stack(parts), idx, _states(coeffs)))
-        ll = ll.contiguous()
-        dist.all_reduce(ll, group=group)
-    return _with_scan_gradient(ll, term, t, diag, resid, coeffs, (tt, dd, y))
+        nl = n // d
+        lo, hi = idx * nl, (idx + 1) * nl
+        A, Q, H, dl, yl = _k1_inputs(tuple(coeffs), dt[lo:hi], dd[..., lo:hi], y[..., lo:hi],
+                                     batch, idx == 0)
+        mu, s = _ShardedK1.apply(H, _shard_blocks(nl), d, idx, group, A, Q, dl, yl)
+        ll = _innovation_sum(yl, mu, s).reshape(batch)
+    return _RankSum.apply(ll, group)

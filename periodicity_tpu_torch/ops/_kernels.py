@@ -112,6 +112,14 @@ ENTRY_POINTS = {
     # pairs, mode, unsigned long long[2] out, stream: K1's float32 quotient
     # against __fdiv_rn (a card test)
     "kalman_quot_check_f32": [ctypes.c_ulonglong, _I, _P, _P],
+    # A, Q, H, diag, y, carry_in, prefixes, dmu, ds, dcarry_out, b, n, r, n_blocks,
+    # levels, dtree, dpre, share, dA, dQ, ddiag, dy, dcarry_in, stream
+    "kalman_blocked_adjoint_f32": [_P] * 10 + [_I] * 4 + [_P] * 10,
+    "kalman_blocked_adjoint_f64": [_P] * 10 + [_I] * 4 + [_P] * 10,
+    # b, n, r, n_blocks, carry, element size, int[10] out: K2's launch geometry
+    "kalman_blocked_adjoint_geometry": [_I] * 6 + [_P],
+    # r, element size, int[18] out: K2's six kernels' local memory, registers, shared memory
+    "kalman_blocked_adjoint_attributes": [_I] * 2 + [_P],
 }
 
 # the celerite and Kalman kernels take up to this many slots (R): a

@@ -1657,11 +1657,112 @@ def test_kalman_kernel_counts_raises_and_never_falls_back(cuda, monkeypatch):
         K.kalman_blocked(A, Q, H, diag, y, 4)
 
 
+K2_SHAPES = ((3, 257, 7), (2, 64, 8), (1, 5, 16), (2, 1, 1), (1, 80, 39), (2, 130, 64),
+             (1, 20, 64), (2, 300, 1))
+K2_SHAPES_WIDE = ((3, 57, 7), (2, 64, 8), (1, 5, 16), (2, 1, 1), (1, 80, 39), (2, 130, 64),
+                  (1, 20, 64), (2, 60, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", range(1, 17))
+def test_kalman_adjoint_matches_plain_bit_for_bit(cuda, dtype, r):
+    """K2 against its plain version at R = 1..16 over K1's test geometries
+    (past R = 8 shorter series: the plain version steps through numpy),
+    from the identity and from a carry, with a cotangent on the outgoing
+    carry and without; the prefixes K1 hands it on the card; two launches
+    give the same bits."""
+    from chip_smoke import k1_draw
+    from periodicity_tpu_torch.models.gp import pscan
+    from periodicity_tpu_torch.ops import kalman as K
+
+    rng = np.random.default_rng(100 + r)
+    for b, n, nb in (K2_SHAPES if r <= 8 else K2_SHAPES_WIDE):
+        coeffs, dt, A, Q, H, diag, y = k1_draw(rng, r, b, n, dtype)
+        _, _, carry = K.kalman_blocked_plain(A, Q, H, diag, y, 3)
+        Ac, Pinf, _ = pscan._ssm_from_dt(coeffs, dt)
+        Qc = pscan._noise(Ac, Pinf)
+        for args, start in (((A, Q, H, diag, y), None), ((Ac, Qc, H, diag, y), carry)):
+            args = [x.contiguous() for x in args]
+            dmu, ds = (torch.from_numpy(rng.standard_normal((b, n))).to(dtype) for _ in "ab")
+            dc = tuple(torch.from_numpy(rng.standard_normal(x.shape)).to(dtype)
+                       for x in (start or carry))
+            for dcarry in (None, dc):
+                _, _, _, pre = K.kalman_blocked_plain(*args, nb, start, prefixes=True)
+                want = K.kalman_blocked_adjoint_plain(*args, nb, start, pre, dmu, ds, dcarry)
+                on = [x.to(cuda) for x in args]
+                st = None if start is None else tuple(c.to(cuda) for c in start)
+                _, _, _, pre_c = K.kalman_blocked(*on, nb, st, prefixes=True)
+                assert _bits(pre_c, pre)
+                dcc = None if dcarry is None else tuple(c.to(cuda) for c in dcarry)
+                got = K.kalman_blocked_adjoint(*on, nb, st, pre_c, dmu.to(cuda), ds.to(cuda),
+                                               dcc)
+                again = K.kalman_blocked_adjoint(*on, nb, st, pre_c, dmu.to(cuda),
+                                                 ds.to(cuda), dcc)
+                flat = lambda g: list(g[:4]) + list(g[4] or ())  # noqa: E731
+                assert (got[4] is None) == (start is None)
+                assert all(_bits(a, w) for a, w in zip(flat(got), flat(want))), (b, n, nb)
+                assert all(_bits(a, w.cpu()) for a, w in zip(flat(again), flat(got)))
+
+
+def test_kalman_adjoint_geometry_and_attributes(cuda):
+    """K2's launches as csrc/kalman_adjoint.cu reports them (a group of
+    lanes an item, one warp a block; 2 levels + 5 launches a call) and
+    every width's compiled resources, printed (run with -s): registers
+    within 255 a thread, the groups' slots in shared memory (none in the
+    leaf kernel, a thread a value)."""
+    from periodicity_tpu_torch.ops import kalman as K
+
+    for b, n, nb, carry in ((1, 100_000, 390, False), (1, 65536, 512, True), (3, 5, 16, False)):
+        g = K.kernel_geometry(b, n, 4, nb, carry, adjoint=True)
+        length, m = K.block_geometry(n, nb)
+        assert (g["length"], g["blocks"], g["leaves"]) == (length, m, m + carry)
+        assert g["levels"] == K.tree_levels(m + carry) and g["launches"] == 2 * g["levels"] + 5
+        assert (g["lanes"], g["group_items"]) == (4, 8), g
+        assert (g["position_blocks"] - 1) * g["group_items"] < b * n <= g["position_blocks"] * g[
+            "group_items"]
+    for dtype in (torch.float32, torch.float64):
+        for r in range(1, K.MAX_R + 1):
+            att = K.kernel_attributes(r, dtype, adjoint=True)
+            print(f"K2 R={r} {dtype}: " + ", ".join(
+                f"{k} {v['local_bytes']} B local / {v['registers']} regs" for k, v in att.items()))
+            assert all(0 < v["registers"] <= 255 and (v["shared_bytes"] == 0) == (k == "leaf")
+                       for k, v in att.items()), att
+
+
+def test_kalman_adjoint_counts_raises_and_never_falls_back(cuda, monkeypatch):
+    from chip_smoke import k1_draw
+    from periodicity_tpu_torch.ops import _kernels
+    from periodicity_tpu_torch.ops import kalman as K
+
+    _, _, A, Q, H, diag, y = k1_draw(np.random.default_rng(0), 4, 2, 30, torch.float64)
+    A, Q, H, diag, y = (x.to(cuda) for x in (A, Q, H, diag, y))
+    _, _, _, pre = K.kalman_blocked(A, Q, H, diag, y, 4, prefixes=True)
+    before = K.kalman_blocked_adjoint.launches
+    K.kalman_blocked_adjoint(A, Q, H, diag, y, 4, None, pre, diag, y)
+    assert K.kalman_blocked_adjoint.launches == before + 1
+    with pytest.raises(ValueError):
+        K.kalman_blocked_adjoint(A, Q, H, diag, y, 4, None, pre.float(), diag, y)
+    with pytest.raises(ValueError):
+        K.kalman_blocked_adjoint(A, Q, H, diag, y, 4, None, pre[:, :10], diag, y)
+
+    class Failing:
+        @staticmethod
+        def kalman_blocked_adjoint_f64(*args):
+            return 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(_kernels, "load", lambda: Failing())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.kalman_blocked_adjoint(A, Q, H, diag, y, 4, None, pre, diag, y)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kalman_solvers_on_card_match_cpu(cuda, dtype):
     """pscan, blocked and chunked on the card against the CPU port (the
     card's exp, cos and products may differ from the host's by an ulp), and
-    the gradients of blocked and chunked the scan's on the card."""
+    the gradients of blocked and chunked, through K1 and K2: in float64
+    within 1e-10 of the CPU port's and within JAX's 1e-6 of the scan's; in
+    float32 within twice the float32 scan's own error of the float64
+    scan's gradient."""
     from periodicity_tpu_torch.gp import (BrownianTerm, log_likelihood, log_likelihood_blocked,
                                           log_likelihood_chunked, log_likelihood_pscan)
 
@@ -1679,15 +1780,29 @@ def test_kalman_solvers_on_card_match_cpu(cuda, dtype):
         card = fn(BrownianTerm(0.01, 20.0, 10.0, 0.3), *(a.to(cuda) for a in data))
         assert card.device.type == "cuda"
         assert float(card) == pytest.approx(float(host), rel=rel), name
-    p = torch.tensor([0.01, 20.0, 10.0, 0.3], dtype=dtype, device=cuda)
     grads = {}
     for name, fn in (("scan", log_likelihood), ("blocked", calls["blocked"]),
                      ("chunked", calls["chunked"])):
-        pg = p.clone().requires_grad_(True)
-        ll = fn(BrownianTerm(pg[0], pg[1], pg[2], pg[3]), *(a.to(cuda) for a in data))
-        (grads[name],) = torch.autograd.grad(ll, pg)
-    assert torch.equal(grads["blocked"], grads["scan"])
-    assert torch.equal(grads["chunked"], grads["scan"])
+        for where in ("cuda", "cpu"):
+            for dt in (dtype, torch.float64):
+                pg = torch.tensor([0.01, 20.0, 10.0, 0.3], dtype=dt, device=where,
+                                  requires_grad=True)
+                ll = fn(BrownianTerm(pg[0], pg[1], pg[2], pg[3]),
+                        *(a.to(where, dt) for a in data))
+                (grads[name, where, dt],) = torch.autograd.grad(ll, pg)
+    ref = grads["scan", "cpu", torch.float64]
+
+    def rel(a, b):
+        a, b = a.cpu().double(), b.cpu().double()
+        return float(((a - b) / b).abs().max())
+
+    for name in ("blocked", "chunked"):
+        if dtype == torch.float64:
+            assert rel(grads[name, "cuda", dtype], grads[name, "cpu", dtype]) <= 1e-10, name
+            assert rel(grads[name, "cuda", dtype], grads["scan", "cuda", dtype]) <= 1e-6, name
+        else:
+            assert rel(grads[name, "cuda", dtype], ref) <= 2 * rel(
+                grads["scan", "cuda", dtype], ref), name
 
 
 def test_nuts_step_on_card_matches_cpu_with_the_same_draws(cuda):
@@ -1845,8 +1960,11 @@ def test_distributed_fft_stages_on_card_match_cpu(cuda, nccl_mesh, dtype):
 def test_sharded_likelihood_on_card_matches_cpu(cuda, nccl_mesh):
     """World size 1 is one K1 call over the series (the card's against the
     CPU's within 1e-12, f64); D = 4 ranks' stages in turn, card against CPU
-    within 1e-12 and against the one-rank value within 1e-10; the gradient
-    is the scan's."""
+    within 1e-12 and against the one-rank value within 1e-10; the gradient,
+    through K2, bit for bit the blocked one's at the same blocks, within
+    JAX's 1e-6 of the scan's, and the D = 4 stages' gradient (autograd
+    through the stacked summaries) card against CPU within 1e-10 and
+    against the one-rank gradient within 1e-10."""
     from chip_smoke import in_turn_ll
     from periodicity_tpu_torch.gp import (BrownianTerm, log_likelihood, log_likelihood_blocked,
                                           log_likelihood_sharded)
@@ -1871,13 +1989,21 @@ def test_sharded_likelihood_on_card_matches_cpu(cuda, nccl_mesh):
     assert d4_card == pytest.approx(d4_host, rel=1e-12)
     assert d4_card == pytest.approx(card, rel=1e-10)
     grads = {}
-    for name, fn in (("scan", log_likelihood),
-                     ("sharded", lambda *a: log_likelihood_sharded(*a, smesh))):
-        pg = torch.tensor([0.01, 20.0, 10.0, 0.3], dtype=torch.float64, device=cuda,
+    for name, fn, where in (
+            ("scan", log_likelihood, cuda),
+            ("sharded", lambda *a: log_likelihood_sharded(*a, smesh), cuda),
+            ("blocked", lambda *a: log_likelihood_blocked(*a, n_blocks=_shard_blocks(n)), cuda),
+            ("d4", lambda *a: in_turn_ll(*a, 4)[0], cuda),
+            ("d4_cpu", lambda *a: in_turn_ll(*a, 4)[0], "cpu")):
+        pg = torch.tensor([0.01, 20.0, 10.0, 0.3], dtype=torch.float64, device=where,
                           requires_grad=True)
-        ll = fn(BrownianTerm(pg[0], pg[1], pg[2], pg[3]), *(a.to(cuda) for a in data))
+        ll = fn(BrownianTerm(pg[0], pg[1], pg[2], pg[3]), *(a.to(where) for a in data))
         (grads[name],) = torch.autograd.grad(ll, pg)
-    assert torch.equal(grads["sharded"], grads["scan"])
+    grads = {k: v.cpu() for k, v in grads.items()}
+    assert torch.equal(grads["sharded"], grads["blocked"])
+    np.testing.assert_allclose(grads["sharded"].numpy(), grads["scan"].numpy(), rtol=1e-6)
+    np.testing.assert_allclose(grads["d4"].numpy(), grads["d4_cpu"].numpy(), rtol=1e-10)
+    np.testing.assert_allclose(grads["d4"].numpy(), grads["sharded"].numpy(), rtol=1e-10)
 
 
 def test_sharded_sampler_and_modeler_on_card(cuda, nccl_mesh):

@@ -277,9 +277,11 @@ def test_batched_rows_equal_one_row_calls(chunked_draw):
 
 def test_gradient_of_blocked_and_chunked_is_the_scans():
     """tests/test_gp.py::test_chunked_likelihood_grad_and_vmap's draw: the
-    gradient through blocked and chunked equals the scan's bit for bit and
-    jax.grad through JAX's scan within 1e-10; a walker batch of chunked
-    values equals JAX's scan per walker within JAX's 1e-8."""
+    gradient through blocked and chunked is K1's own, through K2 (the
+    chunks reversed, the carry's cotangent handed back), within JAX's 1e-6
+    of the scan's and within 1e-8 of jax.grad through JAX's blocked and
+    chunked solvers at the same geometry; a walker batch of chunked values
+    equals JAX's scan per walker within JAX's 1e-8."""
     rng = np.random.default_rng(14)
     n = 800
     t = np.sort(rng.uniform(0, 100, n))
@@ -287,9 +289,11 @@ def test_gradient_of_blocked_and_chunked_is_the_scans():
     y = y - y.mean()
     diag = np.full(n, 0.01)
     p0 = np.array([0.01, 20.0, 10.0, 0.3])
-    g_jax = np.asarray(jax.grad(
-        lambda p: JS.log_likelihood(JT.BrownianTerm(p[0], p[1], p[2], p[3]), t, diag, y))(
-            jnp.asarray(p0)))
+    g_jax = {name: np.asarray(jax.grad(lambda p, fn=fn: fn(
+        JT.BrownianTerm(p[0], p[1], p[2], p[3]), t, diag, y))(jnp.asarray(p0)))
+        for name, fn in (("blocked", lambda *a: JP.log_likelihood_blocked(*a, n_blocks=16)),
+                         ("chunked", lambda *a: JP.log_likelihood_chunked(
+                             *a, chunk=256, inner_blocks=64)))}
     grads = {}
     for name, fn in (("scan", log_likelihood),
                      ("blocked", lambda *a: log_likelihood_blocked(*a, n_blocks=16)),
@@ -299,8 +303,8 @@ def test_gradient_of_blocked_and_chunked_is_the_scans():
         ll = fn(PT.BrownianTerm(p[0], p[1], p[2], p[3]), _T(t), _T(diag), _T(y))
         (grads[name],) = torch.autograd.grad(ll, p)
     for name in ("blocked", "chunked"):
-        assert torch.equal(grads[name], grads["scan"])
-    np.testing.assert_allclose(grads["chunked"].numpy(), g_jax, rtol=1e-10)
+        np.testing.assert_allclose(grads[name].numpy(), grads["scan"].numpy(), rtol=1e-6)
+        np.testing.assert_allclose(grads[name].numpy(), g_jax[name], rtol=1e-8)
     pv = np.stack([p0, p0 * 1.1, p0 * 0.9])
     lls = log_likelihood_chunked(PT.BrownianTerm(*(_T(pv[:, i]) for i in range(4))), _T(t),
                                  _T(diag), _T(y), chunk=256, inner_blocks=64)
